@@ -60,3 +60,9 @@ def grid64():
 @pytest.fixture(scope="session")
 def proj64(small_scene, cam64):
     return project(small_scene, cam64)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the CUDA kernels run only on "
+        "the card); skips where torch.cuda.is_available() is False")
