@@ -89,6 +89,68 @@ def leader_corners(grid: TileGrid, device="cpu"):
     return local + 0.5, local + (m + 0.5)
 
 
+def _pr_pass_mask(proj: Projected, p_top: torch.Tensor, p_bot: torch.Tensor,
+                  prec: PrecisionScheme) -> torch.Tensor:
+    """(R, N, 4) bool: corner c of the PR (p_top[r], p_bot[r]) passes for
+    Gaussian n. The shared LHS ln(255 o) is computed once per Gaussian."""
+    lhs = torch.log(255.0 * torch.clamp_min(proj.opacity, 1e-12))   # (N,)
+    E = pr_gaussian_weight(proj.mean2d[None, :, :], proj.conic[None, :, :],
+                           p_top[:, None, :], p_bot[:, None, :], prec)
+    ok = lhs[None, :, None] > E * (1.0 - prec.slack)
+    return ok & proj.in_frustum[None, :, None]
+
+
+GAUSS_CHUNK_ELEMS = 1 << 25   # bound on the (M, chunk, 4) corner weights
+#                               live at once: `minitile_cat_mask` blocks
+#                               over Gaussians.
+
+
+def minitile_cat_mask(proj: Projected, grid: TileGrid,
+                      mode: SamplingMode = SamplingMode.UNIFORM_DENSE,
+                      prec: PrecisionScheme = FULL_FP32,
+                      spiky_threshold: float = 3.0) -> torch.Tensor:
+    """(num_minitiles, N) bool: mini-tile m processes Gaussian n.
+
+    Dense sampling tests the mini-tile's 4 corners; sparse sampling its 2
+    main-diagonal corners (the same PR's lanes 0 and 3). The Gaussians are
+    taken in blocks that keep the (M, block, 4) weights under
+    `GAUSS_CHUNK_ELEMS`; columns are independent, so blocking changes no
+    bit. The plain version of the dense PRTU kernel's function."""
+    device = proj.mean2d.device
+    origins = grid.minitile_origins(device).to(torch.float32)     # (M, 2)
+    m = float(grid.minitile - 1)
+    p_top, p_bot = origins + 0.5, origins + (m + 0.5)
+    n = proj.mean2d.shape[0]
+    spiky = classify_spiky(proj.axis_ratio, spiky_threshold)      # (N,)
+    chunk = max(1, GAUSS_CHUNK_ELEMS // (4 * p_top.shape[0]))
+    out = torch.empty((p_top.shape[0], n), dtype=torch.bool, device=device)
+    for s in range(0, n, chunk):
+        sub = Projected(*(x[s:s + chunk] for x in proj))
+        corners = _pr_pass_mask(sub, p_top, p_bot, prec)          # (M, c, 4)
+        out[:, s:s + chunk] = select_mode(corners,
+                                          spiky[None, s:s + chunk], mode)
+    return out
+
+
+def exact_minitile_mask(proj: Projected, grid: TileGrid) -> torch.Tensor:
+    """Oracle: the mini-tile truly contains a contributing pixel (all of its
+    pixels tested). (M, N) bool, O(M·P·N) memory — tests only."""
+    device = proj.mean2d.device
+    origins = grid.minitile_origins(device).to(torch.float32)     # (M, 2)
+    mt = grid.minitile
+    r = torch.arange(mt, device=device)
+    dy, dx = torch.meshgrid(r, r, indexing="ij")
+    offs = torch.stack([dx.reshape(-1), dy.reshape(-1)], -1) + 0.5  # (P, 2)
+    pix = origins[:, None, :] + offs[None, :, :]                  # (M, P, 2)
+    d = pix[:, :, None, :] - proj.mean2d[None, None, :, :]        # (M,P,N,2)
+    cxx, cxy, cyy = proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2]
+    E = (0.5 * (cxx * d[..., 0] ** 2 + cyy * d[..., 1] ** 2)
+         + cxy * d[..., 0] * d[..., 1])
+    lhs = torch.log(255.0 * torch.clamp_min(proj.opacity, 1e-12))
+    hit = (lhs[None, None, :] > E).any(dim=1)                     # (M, N)
+    return hit & proj.in_frustum[None, :]
+
+
 def entry_cat_mask(proj: Projected, grid: TileGrid, lists: torch.Tensor,
                    valid: torch.Tensor,
                    mode: SamplingMode = SamplingMode.UNIFORM_DENSE,

@@ -3,7 +3,9 @@
 Stage-1 tile masks are compacted into dense per-tile Gaussian lists in
 depth order, so blending wastes no lanes on Gaussians no mini-tile of the
 tile needs. Blending consumes the per-entry (T, K, minitiles_per_tile) CAT
-masks of the survivor-stream dataflow.
+masks of the survivor-stream dataflow; dense (num_minitiles, N) masks of
+the oracle (and the OBB baseline's (num_subtiles, N) mask) convert via
+`entry_mask_from_dense`.
 
 All blending math matches vanilla 3DGS:
     alpha = min(0.99, o * exp(-E)),  skip if alpha < 1/255
@@ -91,6 +93,26 @@ def _compact_passes(mask_of_block, block_operand: torch.Tensor, t: int,
     return lists, lists >= 0, overflow
 
 
+def compact_tile_lists_passes(mask: torch.Tensor, order: torch.Tensor,
+                              k_max: int, passes: int):
+    """Multi-pass compaction of a (T, N) tile mask over unsorted Gaussian
+    ids: survivors past a pass's k_max spill into the next pass's list.
+    Returns (lists (passes, T, K) int32, valid (passes, T, K) bool,
+    overflow ()), the passes concatenated along K equal to one
+    `passes * k_max` compaction. Chunked over tiles; each chunk's columns
+    are taken in depth order."""
+    t, n = mask.shape
+    return _compact_passes(lambda rows: rows[:, order], mask, t, n, order,
+                           k_max, passes)
+
+
+def compact_tile_lists(mask: torch.Tensor, order: torch.Tensor, k_max: int):
+    """Per-tile Gaussian lists in depth order from a (T, N) tile mask:
+    (lists (T, K) int32, valid (T, K) bool, overflow ())."""
+    lists, valid, overflow = compact_tile_lists_passes(mask, order, k_max, 1)
+    return lists[0], valid[0], overflow
+
+
 def compact_aabb_tile_lists(proj: Projected, grid: TileGrid,
                             order: torch.Tensor, k_max: int,
                             passes: int = 1):
@@ -132,6 +154,24 @@ def _minitile_index_in_tile(grid: TileGrid, device="cpu") -> torch.Tensor:
     r = torch.arange(t, device=device)
     dy, dx = torch.meshgrid(r, r, indexing="ij")
     return ((dy // m) * (t // m) + (dx // m)).reshape(-1)
+
+
+def entry_mask_from_dense(grid: TileGrid, mask: torch.Tensor,
+                          lists: torch.Tensor,
+                          size: Optional[int] = None) -> torch.Tensor:
+    """Gather a dense image-global (num_regions, N) mask of size×size
+    regions (mini-tiles by default) at compacted entries: (T, K,
+    minitiles_per_tile) bool, each mini-tile reading the row of the region
+    that holds it — the per-entry form the blend consumes (the bridge for
+    the dense oracle and the OBB baseline's sub-tile mask). Invalid slots
+    read Gaussian 0's bits; the blend gates them by `valid`."""
+    size = grid.minitile if size is None else size
+    device = lists.device
+    cells = (grid.tile_origins(device)[:, None, :]
+             + grid.minitile_local_origins(device)[None]) // size
+    rows = cells[..., 1] * (grid.width // size) + cells[..., 0]  # (T, Mt)
+    idx = lists.clamp_min(0).long()
+    return mask[rows[:, None, :], idx[:, :, None]]            # (T, K, Mt)
 
 
 def tile_pixels(grid: TileGrid, tile_origins: torch.Tensor) -> torch.Tensor:
@@ -234,3 +274,32 @@ def finalize_blend(grid: TileGrid, state: BlendState, background: float,
         overflow=torch.as_tensor(overflow, device=rgb.device),
         entry_alive=entry_alive,
     )
+
+
+def render_reference(proj: Projected, grid: TileGrid,
+                     background: float = 0.0) -> torch.Tensor:
+    """Oracle renderer: every pixel blends every in-frustum Gaussian in
+    exact depth order (no tiling, no tests). O(H·W·N) — tests only.
+    Returns (H, W, 3)."""
+    order = depth_order(proj)
+    mean, conic = proj.mean2d[order], proj.conic[order]
+    op = torch.where(proj.in_frustum[order], proj.opacity[order],
+                     torch.zeros_like(proj.opacity[order]))
+    col = proj.color[order]
+    device = proj.mean2d.device
+    xs = torch.arange(grid.width, dtype=torch.float32, device=device) + 0.5
+    rows = []
+    for yi in range(grid.height):
+        y = yi + 0.5
+        d_x = xs[:, None] - mean[None, :, 0]                     # (W, N)
+        d_y = y - mean[None, :, 1]
+        E = (0.5 * (conic[None, :, 0] * d_x ** 2
+                    + conic[None, :, 2] * d_y ** 2)
+             + conic[None, :, 1] * d_x * d_y)
+        a = torch.clamp_max(op[None, :] * torch.exp(-E), ALPHA_MAX)
+        a = torch.where(a >= ALPHA_MIN, a, torch.zeros_like(a))
+        T = torch.cumprod(1.0 - a, dim=1)
+        T_excl = torch.cat([torch.ones_like(T[:, :1]), T[:, :-1]], dim=1)
+        w = T_excl * a
+        rows.append(w @ col + background * (1.0 - w.sum(dim=1))[:, None])
+    return torch.stack(rows)                                     # (H, W, 3)

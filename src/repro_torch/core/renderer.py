@@ -5,12 +5,12 @@ The paper's pipeline is staged (Fig. 6):
     Preprocess -> Stage 1 + Compact -> CTU -> Blend
 
 and the stage boundaries are the API. Four structured sub-configs, one per
-resource the stages consume:
+resource the stages consume, plus a dataflow selector:
 
     GridConfig    image tiling hierarchy (height/width/tile/subtile/minitile)
-    TestConfig    hierarchical test: method, leader-pixel sampling mode,
-                  CTU precision scheme, spiky threshold, and the CTU
-                  backend ("torch" | "cuda" — the PRTU CTU kernel)
+    TestConfig    hierarchical test: method (aabb | obb | cat), leader-pixel
+                  sampling mode, CTU precision scheme, spiky threshold, and
+                  the CTU backend ("torch" | "cuda" — the PRTU kernels)
     StreamConfig  survivor-stream resources: k_max per pass and the
                   OverflowPolicy applied when a tile list exceeds it
     RasterConfig  blend stage: background and the raster backend
@@ -28,7 +28,13 @@ Under `OverflowPolicy.SPILL` the plan runs `StreamConfig.max_spill_passes`
 compacted passes: each pass's entries go through the CTU and the blend
 folds the passes front to back through carried state, so overflow entries
 render instead of being clamped while per-pass memory stays at the k_max
-size. This slice ports the survivor-stream dataflow with the CAT method.
+size.
+
+`RenderPlan.dataflow` selects how the hierarchy materializes between
+Stage 1 and the CTU: "stream" (the default: compact first, CTU on
+survivors only, O(T·k_max·16) masks) or "dense" (the O(regions·N) parity
+oracle, which every stream quantity must match). The AABB (vanilla 3DGS)
+and OBB (GSCore) baselines compact their own dense tile masks.
 """
 from __future__ import annotations
 
@@ -74,21 +80,18 @@ class GridConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TestConfig:
-    """Hierarchical-test stage (Stage-1 AABB + Mini-Tile CAT in the CTU).
-
-    Only the "cat" method is ported so far; the AABB and OBB baselines
-    arrive with the dense dataflow."""
+    """Hierarchical-test stage (Stage-1 AABB + Mini-Tile CAT in the CTU)."""
     __test__ = False          # "Test" prefix: keep pytest collection away
-    method: str = "cat"
+    method: str = "cat"                      # aabb | obb | cat
     mode: SamplingMode = SamplingMode.SMOOTH_FOCUSED
     precision: PrecisionScheme = MIXED
     spiky_threshold: float = 3.0
     backend: str = "torch"                   # torch | cuda (PRTU kernel)
 
     def __post_init__(self):
-        if self.method != "cat":
-            raise ValueError(f"method {self.method!r} is not ported "
-                             "(the port renders with method 'cat')")
+        if self.method not in ("aabb", "obb", "cat"):
+            raise ValueError(f"unknown method {self.method!r} "
+                             "(expected 'aabb', 'obb' or 'cat')")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown test backend {self.backend!r} "
                              f"(expected one of {BACKENDS})")
@@ -153,22 +156,37 @@ class ProjectedScene:
 class TileStream:
     """One compacted pass of per-tile depth-ordered survivor streams; pass
     `index` holds survivors index*k_max..(index+1)*k_max-1 of each tile's
-    list, and `overflow` is the frame's flag (same in every pass)."""
+    list, and `overflow` is the frame's flag (same in every pass).
+
+    `dense` carries the full-mask `HierarchyOut` of the dense oracle;
+    `baseline_sub` and `counters` the OBB baseline's (S, N) sub-tile mask
+    and the baselines' workload counters. All three are None on the stream dataflow and are
+    shared (the same tensors) by the passes of a frame."""
     lists: torch.Tensor                       # (T, K) int32 gaussian ids
     valid: torch.Tensor                       # (T, K) bool
     overflow: torch.Tensor                    # () bool
+    dense: Optional[H.HierarchyOut] = None
+    baseline_sub: Optional[torch.Tensor] = None
+    counters: Optional[dict] = None
     index: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderPlan:
-    """An executable, hashable composition of the render stages on the
-    survivor-stream dataflow. Tensors stay on the device of the scene and
-    camera they are given."""
+    """An executable, hashable composition of the render stages. dataflow
+    is "stream" (survivor streams, the default) or "dense" (the parity
+    oracle). Tensors stay on the device of the scene and camera they are
+    given."""
     grid: GridConfig = GridConfig()
     test: TestConfig = TestConfig()
     stream: StreamConfig = StreamConfig()
     raster: RasterConfig = RasterConfig()
+    dataflow: str = "stream"                  # stream | dense
+
+    def __post_init__(self):
+        if self.dataflow not in ("stream", "dense"):
+            raise ValueError(f"unknown dataflow {self.dataflow!r} "
+                             "(expected 'stream' or 'dense')")
 
     def preprocess(self, scene: GaussianScene, camera) -> ProjectedScene:
         """Projection + 3σ screen-space footprints (preprocessing core)."""
@@ -182,18 +200,69 @@ class RenderPlan:
                 if self.stream.overflow is OverflowPolicy.SPILL else 1)
 
     def stage1_compact(self, ps: ProjectedScene) -> tuple[TileStream, ...]:
-        """Stage-1 tile AABB + depth sort + per-tile list compaction, fused
-        and chunked over tiles. One `TileStream` per spill pass."""
-        order = raster.depth_order(ps.proj)
-        lists, valid, overflow = raster.compact_aabb_tile_lists(
-            ps.proj, ps.grid, order, self.stream.k_max, self.n_passes)
-        return tuple(TileStream(lists[p], valid[p], overflow, index=p)
-                     for p in range(self.n_passes))
+        """Stage-1 test + depth sort + per-tile list compaction. One
+        `TileStream` per spill pass.
+
+        stream: the tile-level AABB (the OR of the tile's sub-tile AABBs),
+        fused into the compaction and chunked over tiles.
+        dense: the full dense hierarchy runs here (the oracle needs every
+        mask anyway; the "cuda" backend takes its CAT from the dense PRTU
+        kernel) and the tile lists derive from its sub-tile bits.
+        baselines: `hierarchy.baseline_masks` for the method.
+        """
+        proj, grid = ps.proj, ps.grid
+        k_max, n_passes = self.stream.k_max, self.n_passes
+
+        def as_streams(lists, valid, overflow, **shared):
+            return tuple(TileStream(lists[p], valid[p], overflow, index=p,
+                                    **shared) for p in range(n_passes))
+
+        order = raster.depth_order(proj)
+        if self.test.method != "cat":
+            tile_mask, sub_mask, counters = H.baseline_masks(
+                proj, grid, self.test.method)
+            return as_streams(*raster.compact_tile_lists_passes(
+                tile_mask, order, k_max, n_passes),
+                baseline_sub=sub_mask, counters=counters)
+        if self.dataflow == "dense":
+            args = (proj, grid, self.test.mode, self.test.precision,
+                    self.test.spiky_threshold)
+            if self.test.backend == "cuda":
+                from repro_torch.kernels import ops as kops
+                hout = kops.hierarchical_test_cuda(*args)
+            else:
+                hout = H.hierarchical_test(*args)
+            # The CTU's input stream: Stage-1 survivors per tile.
+            stage1_tile = grid.tile_or(hout.subtile_mask, grid.subtile)
+            return as_streams(*raster.compact_tile_lists_passes(
+                stage1_tile, order, k_max, n_passes), dense=hout)
+        return as_streams(*raster.compact_aabb_tile_lists(
+            proj, grid, order, k_max, n_passes))
 
     def ctu(self, ps: ProjectedScene, ts: TileStream) -> H.StreamHierarchyOut:
-        """Per-entry hierarchical testing (the queue-fed CTU of Fig. 6):
-        Stage-1 sub-tile bits + Mini-Tile CAT on list entries only; the
-        "cuda" backend routes the CAT through the PRTU kernel."""
+        """Per-entry hierarchical testing (the queue-fed CTU of Fig. 6).
+
+        stream: Stage-1 sub-tile bits + Mini-Tile CAT on list entries only;
+        the "cuda" backend routes the CAT through the entry PRTU kernel.
+        dense/baselines: the masks already exist — gather them at the
+        compacted entries (`raster.entry_mask_from_dense`).
+        """
+        if self.test.method != "cat":
+            entry = (None if ts.baseline_sub is None else
+                     raster.entry_mask_from_dense(ps.grid, ts.baseline_sub,
+                                                  ts.lists,
+                                                  size=ps.grid.subtile))
+            return H.StreamHierarchyOut(
+                lists=ts.lists, valid=ts.valid, entry_sub_mask=None,
+                entry_mini_mask=entry, overflow=ts.overflow,
+                counters=ts.counters)
+        if self.dataflow == "dense":
+            entry = raster.entry_mask_from_dense(
+                ps.grid, ts.dense.minitile_mask, ts.lists)
+            return H.StreamHierarchyOut(
+                lists=ts.lists, valid=ts.valid, entry_sub_mask=None,
+                entry_mini_mask=entry, overflow=ts.overflow,
+                counters=ts.dense.counters)
         cat_fn = None
         if self.test.backend == "cuda":
             from repro_torch.kernels import ops as kops
@@ -239,12 +308,15 @@ class RenderPlan:
         return out, counters, alive_parts
 
     def _merge_hout_counters(self, houts) -> dict:
-        """Fold per-pass CTU counters into frame totals: the per-entry sums
-        add across passes, the scene-level ones are pass 0's."""
+        """Fold per-pass CTU counters into frame totals. The stream CAT's
+        per-entry sums add across passes (the scene-level ones are pass
+        0's); the dense oracle's and the baselines' counters are full-mask
+        sums, the same in every pass, so pass 0's dict is the total."""
         counters = dict(houts[0].counters)
-        for h in houts[1:]:
-            for key in H.ADDITIVE_COUNTER_KEYS:
-                counters[key] = counters[key] + h.counters[key]
+        if self.dataflow == "stream" and self.test.method == "cat":
+            for h in houts[1:]:
+                for key in H.ADDITIVE_COUNTER_KEYS:
+                    counters[key] = counters[key] + h.counters[key]
         return counters
 
     def render_with_stats(self, scene: GaussianScene, camera, *,
@@ -264,21 +336,31 @@ class RenderPlan:
                                     n_passes=self.n_passes)
         return out, counters
 
+    def render(self, scene: GaussianScene, camera) -> raster.RenderOut:
+        out, _ = self.render_with_stats(scene, camera)
+        return out
+
     def _render_streams(self, ps: ProjectedScene, streams):
         """The post-Stage-1 tail: CTU per pass, counter merge, blend fold,
         finalize. Returns (RenderOut, counters dict)."""
         houts = [self.ctu(ps, ts) for ts in streams]
         counters = self._merge_hout_counters(houts)
         device = ps.proj.depth.device
-        counters["cat_mask_bytes"] = torch.tensor(
-            float(cat_mask_elems(ps.grid, self.stream.k_max)), device=device)
+        cat = self.test.method == "cat"
+        if cat:
+            counters["cat_mask_bytes"] = torch.tensor(
+                float(cat_mask_elems(ps.grid, ps.proj.depth.shape[0],
+                                     self.stream.k_max, self.dataflow)),
+                device=device)
         out, blend_counters, alive_parts = self._blend_passes(ps, houts)
         counters.update(blend_counters)
-        eff: dict = {}
-        for hout, alive in zip(houts, alive_parts):
-            for key, v in self._effective_counters(ps, hout, alive).items():
-                eff[key] = v if key not in eff else eff[key] + v
-        counters.update(eff)
+        if cat:
+            eff: dict = {}
+            for ts, hout, alive in zip(streams, houts, alive_parts):
+                for key, v in self._effective_counters(ps, ts, hout,
+                                                       alive).items():
+                    eff[key] = v if key not in eff else eff[key] + v
+            counters.update(eff)
         # Passes that actually carried entries (>= 1 even on an empty frame).
         used = sum(int(h.valid.any()) for h in houts)
         counters["spill_passes"] = torch.tensor(float(max(used, 1)),
@@ -301,18 +383,33 @@ class RenderPlan:
             return torch.where(spiky, two, four)
         return torch.where(spiky, four, two)
 
-    def _effective_counters(self, ps: ProjectedScene,
+    def _effective_counters(self, ps: ProjectedScene, ts: TileStream,
                             hout: H.StreamHierarchyOut, entry_alive) -> dict:
         """Termination-aware CTU/VRU workload: for each list entry processed
         before its tile terminated, one PR batch per hit sub-tile and one
-        mini-tile blend per CAT-passing mini-tile."""
-        sub_hits = hout.entry_sub_mask.sum(dim=-1)               # (T, K)
-        mini_hits = hout.entry_mini_mask.sum(dim=-1)
-        prs = self._prs_per_subtile(ps.proj)[hout.lists.clamp_min(0).long()]
+        mini-tile blend per CAT-passing mini-tile. On the stream dataflow
+        the per-entry masks are those quantities; on the dense oracle the
+        sub-tile and mini-tile bits are gathered at the entries from the
+        full masks through the tile's image-global region ids."""
+        idx = hout.lists.clamp_min(0).long()                     # (T, K)
+        if self.dataflow == "stream":
+            sub = hout.entry_sub_mask                            # (T, K, Sp)
+            mini = hout.entry_mini_mask                          # (T, K, Mt)
+        else:
+            device = idx.device
+            sub = ts.dense.subtile_mask[
+                ps.grid.global_subtile_ids(device)[:, None, :],
+                idx[:, :, None]]
+            mini = ts.dense.minitile_mask[
+                ps.grid.global_minitile_ids(device)[:, None, :],
+                idx[:, :, None]]
+        sub_hits = sub.sum(dim=-1)                               # (T, K)
+        mini_hits = mini.sum(dim=-1)
+        prs = self._prs_per_subtile(ps.proj).double()[idx]
         f32 = torch.float32
         return dict(
             ctu_pairs_eff=(sub_hits * entry_alive).sum().to(f32),
-            ctu_prs_eff=(sub_hits * prs * entry_alive).sum().to(f32),
+            ctu_prs_eff=H.exact_f32(sub_hits * prs * entry_alive),
             vru_pairs_eff=(mini_hits * entry_alive).sum().to(f32),
             ctu_stream_len=entry_alive.sum().to(f32),
         )
@@ -333,12 +430,14 @@ class Renderer:
     def __init__(self, grid: Optional[GridConfig] = None,
                  test: Optional[TestConfig] = None,
                  stream: Optional[StreamConfig] = None,
-                 raster: Optional[RasterConfig] = None):
+                 raster: Optional[RasterConfig] = None,
+                 dataflow: str = "stream"):
         self.plan = RenderPlan(
             grid=grid if grid is not None else GridConfig(),
             test=test if test is not None else TestConfig(),
             stream=stream if stream is not None else StreamConfig(),
-            raster=raster if raster is not None else RasterConfig())
+            raster=raster if raster is not None else RasterConfig(),
+            dataflow=dataflow)
 
     @classmethod
     def from_plan(cls, plan: RenderPlan) -> "Renderer":
@@ -347,7 +446,8 @@ class Renderer:
         return r
 
     def replace(self, **kw) -> "Renderer":
-        """New Renderer with plan fields replaced (grid/test/stream/raster)."""
+        """New Renderer with plan fields replaced (grid/test/stream/raster/
+        dataflow)."""
         return Renderer.from_plan(dataclasses.replace(self.plan, **kw))
 
     def render_with_stats(self, scene: GaussianScene, camera):
@@ -412,8 +512,13 @@ def measure_k_max(scene: GaussianScene, cameras, *,
     return min(k, cap) if cap is not None else k
 
 
-def cat_mask_elems(grid: TileGrid, k_max: int) -> int:
-    """Boolean elements the stream CAT stage materializes per pass (1 byte
-    each): T·K·(Sp + Mt), independent of the Gaussian count."""
-    return grid.num_tiles * k_max * (grid.subtiles_per_tile
-                                     + grid.minitiles_per_tile)
+def cat_mask_elems(grid: TileGrid, n: int, k_max: int, dataflow: str) -> int:
+    """Boolean elements the CAT stage materializes per pass (the Stage-1 +
+    CAT masks, 1 byte each): dense (S + M)·N, stream T·K·(Sp + Mt), which
+    does not depend on the Gaussian count."""
+    if dataflow == "dense":
+        return (grid.num_subtiles + grid.num_minitiles) * n
+    if dataflow == "stream":
+        return grid.num_tiles * k_max * (grid.subtiles_per_tile
+                                         + grid.minitiles_per_tile)
+    raise ValueError(dataflow)

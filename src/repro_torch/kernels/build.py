@@ -2,8 +2,9 @@
 
 Each `csrc/*.cu` is compiled on first use, by `nvcc` into its own shared
 library with a plain C interface, under `build/repro_torch_kernels/` at the
-repository root (git-ignored). The file name carries a hash of the source
-and of the flags, so an edited kernel rebuilds and an unchanged one loads
+repository root (git-ignored). The file name carries a hash of the source,
+of every shared header `csrc/*.cuh` and of the flags, so an edited kernel
+or header rebuilds every kernel it may reach, and an unchanged one loads
 from the previous build. All sources compile in parallel, one `nvcc` each.
 
 Importing this module builds nothing and needs no `nvcc`: the CPU tests
@@ -59,7 +60,12 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library built from `src`: its name hashes the source, every
+    `csrc/*.cuh` header (a source may include any of them) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

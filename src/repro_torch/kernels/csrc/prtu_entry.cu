@@ -16,39 +16,18 @@
 // records and store consecutive 16-byte rows (coalesced both ways). The
 // 16 leader-pixel pairs of the tile-local mini-tiles sit in shared memory.
 //
-// Numerics: the result must equal the reference bit for bit, so the
-// arithmetic repeats `_alg1_hits` step by step with one rounding per step:
-//   * fp16 steps round with __float2half_rn and widen with __half2float;
-//   * fp8 steps convert with __nv_cvt_float_to_fp8(x, __NV_NOSAT,
-//     __NV_E4M3), which gives NaN for |x| > 464 and for +-inf exactly as
-//     the reference's float8_e4m3fn cast does (a saturating conversion
-//     would clamp to 448), and widen through __nv_cvt_fp8_to_halfraw;
-//   * the library is built with -fmad=false: under FULL_FP32 nothing is
-//     quantized, and a contracted a*b+c would move near-tie comparisons
-//     lhs > E*(1-slack) by an ulp;
-//   * invalid entries carry lhs = -inf and never hit; a NaN weight compares
-//     false, so an entry more than 464 px from its Gaussian under MIXED
-//     never hits either.
+// Numerics: the per-pair arithmetic is Alg. 1 of alg1.cuh, one rounding
+// per step, built with -fmad=false (see that header): the mask equals the
+// reference bit for bit, invalid entries carry lhs = -inf and never hit.
 #include <cuda_runtime.h>
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
 #include <stdint.h>
+
+#include "alg1.cuh"
 
 namespace {
 
 constexpr int kMiniTiles = 16;
 constexpr int kThreads = 256;
-
-// Precision codes (PrecisionScheme fields): 0 fp32, 1 fp16, 2 fp8.
-__device__ __forceinline__ float quant(float x, int kind) {
-  if (kind == 1) return __half2float(__float2half_rn(x));
-  if (kind == 2) {
-    const __nv_fp8_storage_t s =
-        __nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E4M3);
-    return __half2float(__half(__nv_cvt_fp8_to_halfraw(s, __NV_E4M3)));
-  }
-  return x;
-}
 
 // Sampling modes: 0 uniform_dense, 1 uniform_sparse, 2 smooth_focused,
 // 3 spiky_focused.
@@ -76,59 +55,23 @@ __global__ void __launch_bounds__(kThreads) prtu_entry_kernel(
   const float ox = origins[2 * t];
   const float oy = origins[2 * t + 1];
   const float2 m = reinterpret_cast<const float2*>(mu)[e];
-  const float mu_x = quant(m.x, coord_prec);
-  const float mu_y = quant(m.y, coord_prec);
-  const float cxx = quant(conic[3 * e], coord_prec);
-  const float cxy = quant(conic[3 * e + 1], coord_prec);
-  const float cyy = quant(conic[3 * e + 2], coord_prec);
+  const float mu_x = alg1::quant(m.x, coord_prec);
+  const float mu_y = alg1::quant(m.y, coord_prec);
+  const float cxx = alg1::quant(conic[3 * e], coord_prec);
+  const float cxy = alg1::quant(conic[3 * e + 1], coord_prec);
+  const float cyy = alg1::quant(conic[3 * e + 2], coord_prec);
   const float l = lhs[e];
   const bool sp = spiky[e] != 0;
 
   uint32_t words[4] = {0u, 0u, 0u, 0u};
 #pragma unroll 4
   for (int j = 0; j < kMiniTiles; ++j) {
-    const float ptx = quant(ox + s_top[2 * j], coord_prec);
-    const float pty = quant(oy + s_top[2 * j + 1], coord_prec);
-    const float pbx = quant(ox + s_bot[2 * j], coord_prec);
-    const float pby = quant(oy + s_bot[2 * j + 1], coord_prec);
-    // Alg. 1 line 1: subtract at coord precision, convert to delta precision
-    const float dtx = quant(ptx - mu_x, delta_prec);
-    const float dty = quant(pty - mu_y, delta_prec);
-    const float dbx = quant(pbx - mu_x, delta_prec);
-    const float dby = quant(pby - mu_y, delta_prec);
-    // lines 2-3: shared separable terms
-    const float s_top_x = quant(quant(0.5f * quant(dtx * dtx, mul_prec),
-                                      mul_prec) * cxx, mul_prec);
-    const float s_top_y = quant(quant(0.5f * quant(dty * dty, mul_prec),
-                                      mul_prec) * cyy, mul_prec);
-    const float s_bot_x = quant(quant(0.5f * quant(dbx * dbx, mul_prec),
-                                      mul_prec) * cxx, mul_prec);
-    const float s_bot_y = quant(quant(0.5f * quant(dby * dby, mul_prec),
-                                      mul_prec) * cyy, mul_prec);
-    // lines 4-5: cross terms
-    const float t0 = quant(quant(dtx * dty, mul_prec) * cxy, mul_prec);
-    const float t1 = quant(quant(dbx * dty, mul_prec) * cxy, mul_prec);
-    const float t2 = quant(quant(dtx * dby, mul_prec) * cxy, mul_prec);
-    const float t3 = quant(quant(dbx * dby, mul_prec) * cxy, mul_prec);
-    // lines 6-7: adders at acc precision
-    const float e0 = quant(quant(s_top_x + s_top_y, acc_prec) + t0, acc_prec);
-    const float e1 = quant(quant(s_bot_x + s_top_y, acc_prec) + t1, acc_prec);
-    const float e2 = quant(quant(s_top_x + s_bot_y, acc_prec) + t2, acc_prec);
-    const float e3 = quant(quant(s_bot_x + s_bot_y, acc_prec) + t3, acc_prec);
-
-    const bool h0 = l > e0 * k_slack;
-    const bool h1 = l > e1 * k_slack;
-    const bool h2 = l > e2 * k_slack;
-    const bool h3 = l > e3 * k_slack;
-    const bool dense = h0 || h1 || h2 || h3;
-    const bool sparse = h0 || h3;  // main diagonal only
-    bool hit;
-    switch (mode) {
-      case 0: hit = dense; break;
-      case 1: hit = sparse; break;
-      case 2: hit = sp ? sparse : dense; break;
-      default: hit = sp ? dense : sparse; break;
-    }
+    const bool hit = alg1::hit(
+        alg1::quant(ox + s_top[2 * j], coord_prec),
+        alg1::quant(oy + s_top[2 * j + 1], coord_prec),
+        alg1::quant(ox + s_bot[2 * j], coord_prec),
+        alg1::quant(oy + s_bot[2 * j + 1], coord_prec), mu_x, mu_y, cxx,
+        cxy, cyy, l, sp, mode, delta_prec, mul_prec, acc_prec, k_slack);
     words[j >> 2] |= static_cast<uint32_t>(hit) << (8 * (j & 3));
   }
   out[e] = make_uint4(words[0], words[1], words[2], words[3]);

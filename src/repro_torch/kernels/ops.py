@@ -1,12 +1,15 @@
 """Routing of the render pipeline through the kernels.
 
 `core.renderer.RenderPlan` dispatches here for its "cuda" backends:
-`TestConfig(backend="cuda")` routes the CTU's entry CAT through the PRTU
-kernel (`entry_cat_mask_cuda` via `entry_cat_fn`), and
+`TestConfig(backend="cuda")` routes the CTU's CAT through the PRTU kernels
+(`entry_cat_mask_cuda` via `entry_cat_fn` on the stream dataflow, K1;
+`cat_mask_cuda` / `hierarchical_test_cuda` on the dense oracle, K4), and
 `RasterConfig(fused=True)` routes the blend through the fused kernel
-(`render_tiles_fused_passes`). Per-entry features are gathered in PyTorch
-(`gather_tile_features`); each kernel wrapper takes its plain PyTorch
-version when the tensors lie on the CPU.
+(`render_tiles_fused_passes`, K2). `blend_tiles_cuda` is the full-sweep
+blend (K3), the unfused baseline the fused kernel is measured against.
+Per-entry features are gathered in PyTorch (`gather_tile_features`); each
+kernel wrapper takes its plain PyTorch version when the tensors lie on the
+CPU.
 """
 from __future__ import annotations
 
@@ -16,8 +19,47 @@ from repro_torch.core.gaussians import Projected, classify_spiky
 from repro_torch.core.culling import TileGrid
 from repro_torch.core.cat import SamplingMode, leader_corners
 from repro_torch.core.precision import PrecisionScheme
+from repro_torch.core import hierarchy as H
 from repro_torch.core import raster
 from repro_torch.kernels import prtu, render as krender
+
+
+def cat_mask_operands(proj: Projected, grid: TileGrid,
+                      spiky_threshold: float = 3.0):
+    """The dense PRTU kernel's operands: (p_top, p_bot) (M, 2) leader
+    coords of every mini-tile, and mu, conic, lhs, spiky of every Gaussian.
+    Culled Gaussians get lhs = -inf so they never pass."""
+    device = proj.mean2d.device
+    origins = grid.minitile_origins(device).to(torch.float32)
+    m = float(grid.minitile - 1)
+    lhs = torch.log(255.0 * torch.clamp_min(proj.opacity, 1e-12))
+    lhs = torch.where(proj.in_frustum, lhs, torch.full_like(lhs,
+                                                            float("-inf")))
+    spiky = classify_spiky(proj.axis_ratio, spiky_threshold)
+    return (origins + 0.5, origins + (m + 0.5), proj.mean2d.contiguous(),
+            proj.conic.contiguous(), lhs, spiky.to(torch.int8))
+
+
+def cat_mask_cuda(proj: Projected, grid: TileGrid, mode: SamplingMode,
+                  prec: PrecisionScheme,
+                  spiky_threshold: float = 3.0) -> torch.Tensor:
+    """(num_minitiles, N) bool CAT mask via the dense PRTU kernel."""
+    mask = prtu.prtu_cat_mask(
+        *cat_mask_operands(proj, grid, spiky_threshold), mode=mode.value,
+        coord_prec=prec.coord, delta_prec=prec.delta, mul_prec=prec.mul,
+        acc_prec=prec.acc, slack=prec.slack)
+    # The mask holds only 0 and 1: read it as bool without an (M, N) copy.
+    return mask.view(torch.bool)
+
+
+def hierarchical_test_cuda(proj: Projected, grid: TileGrid,
+                           mode: SamplingMode, prec: PrecisionScheme,
+                           spiky_threshold: float = 3.0) -> H.HierarchyOut:
+    """`core.hierarchy.hierarchical_test` with the CAT from the dense PRTU
+    kernel."""
+    cat = cat_mask_cuda(proj, grid, mode, prec, spiky_threshold)
+    return H.hierarchical_test(proj, grid, mode, prec, spiky_threshold,
+                               cat_mask=cat)
 
 
 def entry_cat_operands(proj: Projected, grid: TileGrid, lists, valid,
@@ -77,6 +119,14 @@ def gather_tile_features(proj: Projected, grid: TileGrid, lists, valid,
     else:
         allow = entry_mask.to(torch.int8)
     return pix, feat, colors, valid.to(torch.int8), allow
+
+
+def blend_tiles_cuda(proj: Projected, grid: TileGrid, lists, valid,
+                     entry_mask=None):
+    """Full-sweep blend of compacted lists through the K3 kernel: (rgb
+    (T, P, 3), trans (T, P)), no termination, no background."""
+    ops = gather_tile_features(proj, grid, lists, valid, entry_mask)
+    return krender.blend_tiles(*ops)
 
 
 def render_tiles_fused_passes(proj: Projected, grid: TileGrid, passes,

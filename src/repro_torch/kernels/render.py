@@ -1,6 +1,6 @@
-"""The fused contribution-aware blend kernel (K2) — the VRU array.
+"""The tile blend kernels — the VRU array: K2 (fused) and K3 (full sweep).
 
-`blend_tiles_fused` blends each tile's compacted, depth-ordered list front
+`blend_tiles_fused` (K2) blends each tile's compacted, depth-ordered list front
 to back with the paper's two in-loop skipping decisions: a per-tile bound
 on occupied K_BLK chunks, and tile-level early termination once every
 pixel's transmittance is below T_EPS. It resumes from carried state
@@ -11,6 +11,11 @@ kblocks_processed per tile).
 On CUDA tensors it launches the hand-written Hopper kernel
 `csrc/blend_fused.cu`; on CPU tensors it runs `blend_tiles_fused_plain`,
 the same chunked front-to-back fold in PyTorch.
+
+`blend_tiles` (K3) is the full sweep the fused kernel is measured against:
+every slot of every tile, no termination, no counters, returning (rgb,
+trans). On CUDA tensors it launches `csrc/blend_full.cu`; on CPU tensors
+it runs `blend_tiles_plain`, the same front-to-back fold in PyTorch.
 
 Operands (pre-gathered per tile, see `kernels.ops.gather_tile_features`):
     pix    (T, P, 2)   pixel centers, P = 256
@@ -35,7 +40,8 @@ K_BLK = 128
 PIXELS = 256            # the kernel's pixels per tile (16x16)
 MINITILES = 16
 
-launches = 0            # kernel launches since the last reset to 0
+launches = 0            # K2 launches since the last reset to 0
+full_launches = 0       # K3 launches since the last reset to 0
 
 
 class FusedBlendOut(NamedTuple):
@@ -167,6 +173,69 @@ def blend_tiles_fused(pix: torch.Tensor, feat: torch.Tensor,
     return FusedBlendOut(rgb=rgb, trans=trans, processed=proc, blended=blnd,
                          entry_alive=alive != 0, kblocks_processed=kproc,
                          kblocks_total=-(-k // K_BLK))
+
+
+def blend_tiles_plain(pix, feat, colors, valid, allow):
+    """Plain PyTorch version of the full-sweep kernel: every entry of every
+    tile folded front to back in `core.raster.blend_pass`'s operation order,
+    without termination. Returns (rgb (T, P, 3), trans (T, P))."""
+    t, p, _ = pix.shape
+    mt_idx = pixel_minitile_index(p, allow.shape[2], pix.device)
+    trans = torch.ones((t, p), dtype=torch.float32, device=pix.device)
+    rgb = torch.zeros((t, p, 3), dtype=torch.float32, device=pix.device)
+    valid_b = valid != 0
+    for kk in range(feat.shape[1]):
+        lane = valid_b[:, kk, None] & (allow[:, kk][:, mt_idx] != 0)
+        a = entry_alpha(pix, feat[:, kk, 0:2], feat[:, kk, 2:5],
+                        feat[:, kk, 5], lane)
+        rgb = rgb + (trans * a)[..., None] * colors[:, kk, None, :]
+        trans = trans * (1.0 - a)
+    return rgb, trans
+
+
+def blend_tiles(pix: torch.Tensor, feat: torch.Tensor, colors: torch.Tensor,
+                valid: torch.Tensor, allow: torch.Tensor):
+    """Full-sweep blend of every list slot of every tile.
+
+    Operands as for `blend_tiles_fused` (module docstring). Returns (rgb
+    (T, P, 3), trans (T, P)). CPU tensors take the plain version; CUDA
+    tensors launch the kernel on the current stream.
+    """
+    t, p, _ = pix.shape
+    k = feat.shape[1]
+    dev = pix.device
+    if dev.type == "cpu":
+        return blend_tiles_plain(pix, feat, colors, valid, allow)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    f32, i8 = torch.float32, torch.int8
+    check("pix", pix, f32, (t, PIXELS, 2), dev)
+    check("feat", feat, f32, (t, k, 8), dev)
+    check("colors", colors, f32, (t, k, 3), dev)
+    check("valid", valid, i8, (t, k), dev)
+    check("allow", allow, i8, (t, k, MINITILES), dev)
+    rgb = torch.empty((t, p, 3), dtype=f32, device=dev)
+    trans = torch.empty((t, p), dtype=f32, device=dev)
+    lib = _full_lib()
+    err = lib.blend_tiles_launch(
+        pix.data_ptr(), feat.data_ptr(), colors.data_ptr(), valid.data_ptr(),
+        allow.data_ptr(), rgb.data_ptr(), trans.data_ptr(), t, k, ALPHA_MIN,
+        ALPHA_MAX, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"blend_tiles launch failed: cudaError {err}")
+    global full_launches
+    full_launches += 1
+    return rgb, trans
+
+
+def _full_lib() -> ctypes.CDLL:
+    lib = build.load("blend_full")
+    fn = lib.blend_tiles_launch
+    if fn.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp] * 7 + [ci, ci, cf, cf, vp]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _lib() -> ctypes.CDLL:

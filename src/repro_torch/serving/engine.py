@@ -89,13 +89,20 @@ class RenderEngine:
     overflow: the OverflowPolicy applied per frame. None keeps the base
         plan's policy, except that the core default CLAMP is upgraded to
         WARN: serving traffic should never clamp silently.
+    dataflow: when not None, overrides the plan's dataflow: "stream" (the
+        survivor-stream path, O(tiles·k_max) CAT memory, the only one that
+        fits production scene sizes) or "dense" (the O(regions·N) parity
+        oracle).
     """
 
     def __init__(self, base: Union[Renderer, RenderPlan, None] = None, *,
                  device: Union[str, torch.device] = "cuda",
-                 overflow: Union[OverflowPolicy, str, None] = None):
+                 overflow: Union[OverflowPolicy, str, None] = None,
+                 dataflow: Optional[str] = None):
         plan = (RenderPlan() if base is None else
                 base.plan if isinstance(base, Renderer) else base)
+        if dataflow is not None:
+            plan = dataclasses.replace(plan, dataflow=dataflow)
         if overflow is None and plan.stream.overflow is OverflowPolicy.CLAMP:
             overflow = OverflowPolicy.WARN
         if overflow is not None:

@@ -7,16 +7,23 @@ a GPU machine without them:
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: K1 (entry CAT) FULL_FP32 exact, MIXED flip rate < 5e-4; K2
-(fused blend) rgb/trans atol 2e-4, counters exact. The seeded numpy
-operand builders are shared with `test_torch_kernels.py`, which holds the
-same wrappers against the reference's Pallas kernels on the CPU.
+(fused blend) rgb/trans atol 2e-4, counters exact; K4 (dense CAT) exact
+under FULL_FP32 and MIXED; K3 (full-sweep blend) rgb/trans atol 1e-6. The
+seeded numpy operand makers are shared with `test_torch_kernels.py` and
+`test_torch_dense.py`, which hold the same wrappers against the
+reference's Pallas kernels on the CPU.
+
+One test here needs no card: an edited shared header (`csrc/*.cuh`)
+changes the library name of every kernel, so no stale build is loaded.
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.precision import FULL_FP32, MIXED
-from repro_torch.kernels import prtu, render
+from repro_torch.kernels import build, prtu, render
 
 T_TILES, K_ENTRIES = 8, 256
 
@@ -52,6 +59,20 @@ def cat_operands(seed, t=T_TILES, k=K_ENTRIES):
     spiky = (rng.random((t, k)) < 0.4).astype(np.int8)
     top, bot = leader_coords()
     return top, bot, tile_origins(t), mu, conic, lhs, spiky
+
+
+def dense_cat_operands(seed, m=512, n=700):
+    """(p_top, p_bot) of m mini-tiles of a 64-px-wide image, and n
+    Gaussians spread over it, a tenth of them culled (lhs = -inf)."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(m)
+    orig = np.stack([(i % 16) * 4, (i // 16) * 4], -1).astype(np.float32)
+    _, conic = gaussian_features(rng, 1, n)
+    mu = rng.uniform(-8, 72, (n, 2)).astype(np.float32)
+    lhs = np.log(255 * rng.uniform(0.01, 0.99, n)).astype(np.float32)
+    lhs[rng.random(n) < 0.1] = -np.inf
+    spiky = (rng.random(n) < 0.4).astype(np.int8)
+    return orig + 0.5, orig + 3.5, mu, conic[0], lhs, spiky
 
 
 def prec_kw(p):
@@ -121,3 +142,43 @@ def test_fused_blend_kernel_matches_plain(cuda):
     assert render.launches == before + 1
     got = type(got)(*(x.cpu() if torch.is_tensor(x) else x for x in got))
     assert_fused_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "mixed"])
+def test_dense_cat_kernel_matches_plain(cuda, prec):
+    p = {"fp32": FULL_FP32, "mixed": MIXED}[prec]
+    ops = [torch.from_numpy(x) for x in dense_cat_operands(5)]
+    kw = dict(mode="smooth_focused", **prec_kw(p))
+    want = prtu.prtu_cat_mask(*ops, **kw)
+    before = prtu.dense_launches
+    got = prtu.prtu_cat_mask(*(x.to(cuda) for x in ops), **kw)
+    assert prtu.dense_launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_full_blend_kernel_matches_plain(cuda):
+    ops = [torch.from_numpy(x) for x in blend_operands(6, t=32, k=320)]
+    want = render.blend_tiles(*ops)
+    before = render.full_launches
+    got = render.blend_tiles(*(x.to(cuda) for x in ops))
+    assert render.full_launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-6)
+
+
+def test_edited_header_rebuilds_both_prtu_kernels(tmp_path, monkeypatch):
+    """Both PRTU sources include csrc/alg1.cuh: editing it must change the
+    library each of them loads."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    sources = [csrc / "prtu_entry.cu", csrc / "prtu_dense.cu"]
+    before = [build._target(s) for s in sources]
+    header = csrc / "alg1.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [build._target(s) for s in sources]
+    assert all(a != b for a, b in zip(after, before))
+    assert build._target(csrc / "blend_full.cu").name.startswith(
+        "blend_full-")

@@ -27,8 +27,8 @@ from repro_torch.core.precision import (FULL_FP32, MIXED, FULL_FP8,
 from repro_torch.kernels import build, prtu, ref, render
 
 from test_torch_cuda import (T_TILES, K_ENTRIES, assert_fused_equal,
-                             blend_operands, cat_operands, leader_coords,
-                             prec_kw)
+                             blend_operands, cat_operands,
+                             dense_cat_operands, leader_coords, prec_kw)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -147,6 +147,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                  for x in blend_operands(0, t=2, k=128)]
     with pytest.raises(ValueError, match="unsupported device"):
         render.blend_tiles_fused(*blend_ops)
+    with pytest.raises(ValueError, match="unsupported device"):
+        render.blend_tiles(*blend_ops)
+    dense_ops = [torch.from_numpy(x).to(meta)
+                 for x in dense_cat_operands(0, m=64, n=32)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        prtu.prtu_cat_mask(*dense_ops)
 
     check = build.check_operand
     x = torch.zeros((4, 3))
