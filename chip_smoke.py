@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--passes-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -13,10 +13,15 @@ through the dense-mask oracle (K4), the stream path and the AABB/OBB
 baselines and holds the stream frame against the oracle bit for bit.
 Phases, in order:
 
-  1. card name and power limit; kernel build time
+  1. card name and power limit; kernel build time and each kernel's
+     registers, shared memory and spills (`-Xptxas -v`)
+  1b. the kernels' rounding steps (csrc/alg1.cuh through the
+     `prtu.alg1_quant` hook) over all 2**32 float32 bit patterns, in chunks
+     of 2**28, one-value and paired, fp8 and fp16: bit-equal to the plain
+     quantizer of core/precision.py (or both NaN), 0 mismatches
   2. K1, the entry CAT (csrc/prtu_entry.cu), on one real spill pass: mask
-     equal to the plain version under FULL_FP32, flip rate < 5e-4 under
-     MIXED, and the fp8 overflow rule (|Δ| > 464 never hits)
+     equal to the plain version under FULL_FP32 and MIXED, and the fp8
+     overflow rule (|Δ| > 464 never hits)
   3. K2, the fused blend (csrc/blend_fused.cu), on the same pass: rgb and
      transmittance within 2e-4 of the plain version, counters equal (a
      mismatch is allowed only where the plain transmittance lies within
@@ -30,6 +35,12 @@ Phases, in order:
      counters and PSNR against the plain render; both kernels' launch
      counts grow by exactly the passes served; then the stage walls of
      one warm frame and the device's busy share under torch.profiler
+  4c. every pass of request 0's frame on the plan the engine settled on:
+     K1 equal to its plain version under FULL_FP32 and MIXED, K2 against
+     its plain version from the carried state, each kernel's device ms
+     (CUDA graph replays: short kernels are host-bound under back-to-back
+     wrapper calls) against its bound, the per-frame sums, and K1 on an
+     all-empty pass
   6. the 1024² / 131072-Gaussian frame (k_max probed, one pass):
      a. K4, the dense CAT (csrc/prtu_dense.cu): the full 65536 × 131072
         mask equal to its plain version under FULL_FP32 and MIXED, no hit
@@ -50,6 +61,18 @@ Phases, in order:
 
 Exits non-zero without printing a result when CUDA is unavailable or any
 phase fails. `--json PATH` also writes every measurement to PATH.
+`--passes-only` runs phases 1 and 4c alone and prints their sums as its
+last line: a copy of this script placed at the root of another commit's
+tree (`git archive`) times that commit's K1 and K2 on the same passes, so
+one chip call can run parent, change, change, parent, each in its own
+process. K1 and K2's `ms` (phases 2, 3 and 4c) are device times from CUDA
+graph replays; K3's and K4's are CUDA-event times around back-to-back
+calls, which their milliseconds of device work dwarf the host time of.
+
+Byte bounds count what the call's data needs: K1 reads every lhs and the
+features of valid entries only and writes every flag; K2 reads the
+entries of the K-blocks it runs, the pixel centres of the tiles that run
+at least one, and the carried state, and writes every output.
 """
 from __future__ import annotations
 
@@ -65,6 +88,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.core import (FULL_FP32, MIXED, GridConfig,  # noqa: E402
                               RasterConfig, RenderPlan, Renderer,
@@ -73,7 +98,7 @@ from repro_torch.core import (FULL_FP32, MIXED, GridConfig,  # noqa: E402
 from repro_torch.core.cat import leader_corners  # noqa: E402
 from repro_torch.core.hierarchy import count_true  # noqa: E402
 from repro_torch.core.raster import entry_mask_from_dense, untile  # noqa: E402
-from repro_torch.core.precision import PrecisionScheme  # noqa: E402
+from repro_torch.core.precision import PrecisionScheme, _quant  # noqa: E402
 from repro_torch.core.raster import T_EPS, entry_alpha  # noqa: E402
 from repro_torch.kernels import build, ops, prtu, render  # noqa: E402
 from repro_torch.serving import (HD_SCENE_KW, RenderEngine,  # noqa: E402
@@ -104,6 +129,14 @@ K2_OPS_PER_LANE = 30
 P1024_RES, P1024_GAUSSIANS, P1024_SEED = 1024, 1 << 17, 1024
 DENSE_PEAK_LIMIT = 24 << 30          # bytes the dense frame may hold
 PLAIN_COLUMNS = 1024                 # Gaussian columns per plain K4 block
+QUANT_CHUNK = 1 << 28                # float32 patterns per rounding check
+# Bytes per list entry K1 must read when it is valid (mu 8, conic 12,
+# spiky 1; lhs is read for every entry) and K2 per entry of a K-block it
+# runs (features 24: mean, conic and opacity, feat[..., 0:6], the rest of
+# the 32-byte row is padding; colour 12, valid 1, allow 16).
+K1_VALID_ENTRY_BYTES = 21
+K2_ENTRY_BYTES = 53
+PASS_REPS = 20                       # CUDA graph replays per device time
 
 
 def log(msg: str) -> None:
@@ -145,6 +178,25 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of one call of `fn` over `reps` replays of a CUDA
+    graph of it: a short kernel timed with CUDA events around back-to-back
+    wrapper calls measures the wrapper's host time instead, and the graph
+    leaves that out (each replay adds only its launch, a few
+    microseconds)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                               # warm-up: build, load, allocate
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, reps)
+    graph.reset()
+    return ms
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
@@ -160,6 +212,38 @@ def blend_lanes(pix, allow, entries) -> int:
     mini-tile bit of each entry in `entries` ((T, K) bool)."""
     bits = (allow != 0).sum(dim=2, dtype=torch.int64)           # (T, K)
     return int((bits * entries).sum()) * (pix.shape[1] // allow.shape[2])
+
+
+# ---------------------------------------------------------------------------
+# Phase 1b: the kernels' rounding steps over every float32
+# ---------------------------------------------------------------------------
+
+def phase_quant() -> dict:
+    """alg1.cuh's fp8 and fp16 rounding (one value and paired) against the
+    plain quantizer over all 2**32 float32 bit patterns: equal bits, or
+    both NaN."""
+    dev = torch.device("cuda")
+    result = {}
+    for kind in ("fp8", "fp16"):
+        for paired in (False, True):
+            bad = 0
+            for start in range(-(1 << 31), 1 << 31, QUANT_CHUNK):
+                bits = torch.arange(start, start + QUANT_CHUNK,
+                                    dtype=torch.int64, device=dev)
+                x = bits.to(torch.int32).view(torch.float32)
+                del bits
+                got = prtu.alg1_quant(x, kind, paired=paired)
+                want = _quant(x, kind)
+                same = (got.view(torch.int32) == want.view(torch.int32)) \
+                    | (got.isnan() & want.isnan())
+                bad += int((~same).sum())
+                del x, got, want, same
+            name = f"{kind}_{'paired' if paired else 'single'}"
+            result[name] = bad
+            log(f"[quant] {name}: {bad} mismatches over 2**32 float32 "
+                "patterns")
+    check(not any(result.values()), f"rounding mismatches: {result}")
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -183,11 +267,11 @@ def phase_k1(proj, grid, lists, valid) -> dict:
         result[f"hits_{name}"] = int(want.sum())
         log(f"[k1] {name}: {flips} flips of {want.numel()} mini-tile tests "
             f"({int(want.sum())} hits)")
-    n = result["tests"] = lists.numel() * 16
-    check(result["flips_fp32"] == 0, "K1 differs from its plain version "
-          "under FULL_FP32")
-    check(result["flips_mixed"] < 5e-4 * n, "K1 MIXED flip rate >= 5e-4")
-    result["max_abs_err"] = float(min(result["flips_mixed"], 1))
+    result["tests"] = lists.numel() * 16
+    for name in ("fp32", "mixed"):
+        check(result[f"flips_{name}"] == 0, "K1 differs from its plain "
+              f"version ({name})")
+    result["max_abs_err"] = float(result["flips_mixed"])
 
     # The fp8 overflow rule (fault F1) on the card: Δ = 470.5 is NaN in
     # e4m3fn and never hits; 400.5 and 463.5 quantize to 416 and 448 and do.
@@ -208,30 +292,41 @@ def phase_k1(proj, grid, lists, valid) -> dict:
           "K1 fp8 conversion does not give NaN past 464")
 
     kw = prec_kw(MIXED)
-    result["ms"] = time_ms(lambda: prtu.prtu_entry_cat_mask(*operands, **kw),
-                           20)
+    result["ms"] = device_ms(
+        lambda: prtu.prtu_entry_cat_mask(*operands, **kw), PASS_REPS)
     result["plain_ms"] = time_ms(
         lambda: prtu.prtu_entry_cat_mask_plain(*operands, **kw), 3)
-    n_valid = int(valid.sum())
-    result["bound_ms"], result["bound_by"] = bound_ms(
-        nbytes(*operands) + lists.numel() * 16, n_valid * 16 * K1_OPS_PER_TEST)
+    result["bound_ms"], result["bound_by"] = k1_bound(operands)
+    n_valid = int(torch.isfinite(operands[5]).sum())
     log(f"[k1] {result['ms']:.4f} ms/pass (plain {result['plain_ms']:.2f} "
         f"ms), bound {result['bound_ms']:.4f} ms by {result['bound_by']}; "
         f"{lists.numel()} entries, {n_valid} valid")
     return result
 
 
+def k1_bound(operands) -> tuple[float, str]:
+    """K1's bound on `operands`: every lhs read and every flag written,
+    the features of valid (finite-lhs) entries read, and their tests."""
+    p_top, p_bot, origins, _, _, lhs, _ = operands
+    n_valid = int(torch.isfinite(lhs).sum())
+    n_bytes = (nbytes(p_top, p_bot, origins, lhs) + lhs.numel() * 16
+               + n_valid * K1_VALID_ENTRY_BYTES)
+    return bound_ms(n_bytes, n_valid * 16 * K1_OPS_PER_TEST)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: K2
 # ---------------------------------------------------------------------------
 
-def near_tie_tiles(operands, tiles) -> torch.Tensor:
+def near_tie_tiles(operands, tiles, t0=None) -> torch.Tensor:
     """Min |T - T_EPS| over every pixel and entry the plain blend visits in
-    `tiles` (the only place a kernel/plain counter mismatch may sit)."""
+    `tiles` (the only place a kernel/plain counter mismatch may sit),
+    starting from the carried transmittance `t0` (ones when None)."""
     pix, feat, _, valid, allow = (x[tiles] for x in operands)
     mt = render.pixel_minitile_index(pix.shape[1], allow.shape[2],
                                      pix.device)
-    trans = torch.ones(pix.shape[:2], device=pix.device)
+    trans = (torch.ones(pix.shape[:2], device=pix.device) if t0 is None
+             else t0[tiles].clone())
     closest = torch.full((len(tiles),), float("inf"), device=pix.device)
     for k in range(feat.shape[1]):
         closest = torch.minimum(closest,
@@ -243,7 +338,7 @@ def near_tie_tiles(operands, tiles) -> torch.Tensor:
     return closest
 
 
-def compare_fused(got, want, operands, label: str) -> float:
+def compare_fused(got, want, operands, label: str, t0=None) -> float:
     err = max(float((got.rgb - want.rgb).abs().max()),
               float((got.trans - want.trans).abs().max()))
     check(err <= 2e-4, f"K2 {label}: rgb/trans differ by {err}")
@@ -255,7 +350,7 @@ def compare_fused(got, want, operands, label: str) -> float:
     bad |= got.kblocks_processed != want.kblocks_processed
     tiles = bad.nonzero().flatten()
     if len(tiles):
-        closest = near_tie_tiles(operands, tiles)
+        closest = near_tie_tiles(operands, tiles, t0)
         for t, c in zip(tiles.tolist(), closest.tolist()):
             log(f"[k2] {label}: counter mismatch in tile {t}, plain T "
                 f"within {c:.3g} of T_EPS")
@@ -302,20 +397,14 @@ def phase_k2(proj, grid, houts) -> dict:
                                                   "1024-entry call")
     log("[k2] two chained passes == one 1024-entry call (bit-exact)")
 
-    result["ms"] = time_ms(
+    result["ms"] = device_ms(
         lambda: render.blend_tiles_fused(*operands, kblock_bound=kb,
-                                         init=init), 20)
+                                         init=init), PASS_REPS)
     result["plain_ms"] = time_ms(
         lambda: render.blend_tiles_fused_plain(*operands, kb, *init), 2)
     chunks = int(got.kblocks_processed.sum())
-    in_bytes = nbytes(*operands, kb, *init)
-    out_bytes = nbytes(got.rgb, got.trans, got.processed, got.blended,
-                       got.kblocks_processed) + got.entry_alive.numel()
-    # The lanes it needs: those of the entries some pixel of the tile
-    # was still alive for.
-    lanes = blend_lanes(pix, allow, got.entry_alive & (valid != 0))
-    result["bound_ms"], result["bound_by"] = bound_ms(
-        in_bytes + out_bytes, lanes * K2_OPS_PER_LANE)
+    result["bound_ms"], result["bound_by"], lanes = k2_bound(
+        operands, kb, init, got)
     result["kblocks_processed"] = chunks
     result["kblocks_total"] = t * got.kblocks_total
     result["lanes"] = lanes
@@ -324,6 +413,26 @@ def phase_k2(proj, grid, houts) -> dict:
         f"{chunks} of {t * got.kblocks_total} K-blocks run, {lanes} "
         "pixel-entry lanes needed")
     return result
+
+
+def k2_bound(operands, kb, init, got) -> tuple[float, str, int]:
+    """K2's bound on one call: read the entries of the K-blocks it ran,
+    the pixel centres of the tiles that ran one or more, the bounds and
+    the carried state; write every output; the operations of the lanes
+    it needs (the set mini-tile bits of the entries some pixel of the
+    tile was still alive for). Returns (ms, "bytes" or "operations",
+    lanes)."""
+    pix, feat, _, valid, allow = operands
+    entries = int((got.kblocks_processed.long() * render.K_BLK)
+                  .clamp(max=feat.shape[1]).sum())
+    running = int((got.kblocks_processed > 0).sum())
+    out_bytes = nbytes(got.rgb, got.trans, got.processed, got.blended,
+                       got.kblocks_processed) + got.entry_alive.numel()
+    n_bytes = (nbytes(pix[0]) * running + nbytes(kb, *init)
+               + entries * K2_ENTRY_BYTES + out_bytes)
+    lanes = blend_lanes(pix, allow, got.entry_alive & (valid != 0))
+    ms, by = bound_ms(n_bytes, lanes * K2_OPS_PER_LANE)
+    return ms, by, lanes
 
 
 # ---------------------------------------------------------------------------
@@ -459,8 +568,6 @@ def stage_walls(plan, scene, cam, label: str) -> dict:
 def phase_breakdown(engine, name) -> dict:
     """Stage walls of one warm frame, and the device's busy share under
     torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     cam = hd1080_cameras(N_REQUESTS)[0].to(engine.device)
     plan = engine.plan_for(name, cam.height, cam.width)
     scene = engine.scene(name)
@@ -487,6 +594,80 @@ def phase_breakdown(engine, name) -> dict:
     return dict(stages_ms=stages, passes=plan.n_passes,
                 profiled_wall_ms=wall, device_busy_ms=busy,
                 kernel_device_ms=ours, top_device_ms=rows[:12])
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: K1 and K2 on every pass of a frame
+# ---------------------------------------------------------------------------
+
+def phase_passes(plan, scene, cam) -> dict:
+    """Every pass of one frame: K1 equal to its plain version (FULL_FP32
+    and MIXED), K2 against its plain version from the carried state, both
+    timed against their bounds; then K1 on an all-empty pass."""
+    ps = plan.preprocess(scene, cam)
+    streams = plan.stage1_compact(ps)
+    houts = [plan.ctu(ps, ts) for ts in streams]
+    kw = prec_kw(MIXED)
+    state = None
+    rows = []
+    for i, (ts, h) in enumerate(zip(streams, houts)):
+        cat_ops = ops.entry_cat_operands(ps.proj, ps.grid, ts.lists,
+                                         ts.valid)
+        for name, p in (("fp32", FULL_FP32), ("mixed", MIXED)):
+            got = prtu.prtu_entry_cat_mask(*cat_ops, **prec_kw(p))
+            want = prtu.prtu_entry_cat_mask_plain(*cat_ops, **prec_kw(p))
+            flips = int((got != want).sum())
+            check(flips == 0, f"K1 pass {i}: {flips} flips ({name})")
+        operands = ops.gather_tile_features(ps.proj, ps.grid, h.lists,
+                                            h.valid, h.entry_mini_mask)
+        kb = render.kblock_bound_of(operands[3])
+        if state is None:
+            t, p = operands[0].shape[:2]
+            dev = operands[0].device
+            state = (torch.ones((t, p), device=dev),
+                     torch.zeros((t, p, 3), device=dev),
+                     torch.zeros((t, p), device=dev),
+                     torch.zeros((t, p), device=dev))
+        got = render.blend_tiles_fused(*operands, kblock_bound=kb,
+                                       init=state)
+        want = render.blend_tiles_fused_plain(*operands, kb, *state)
+        err = compare_fused(got, want, operands, f"pass {i}", t0=state[0])
+        k1 = {"ms": device_ms(
+            lambda: prtu.prtu_entry_cat_mask(*cat_ops, **kw), PASS_REPS)}
+        k2 = {"ms": device_ms(lambda: render.blend_tiles_fused(
+            *operands, kblock_bound=kb, init=state), PASS_REPS)}
+        k1["bound_ms"], k1["bound_by"] = k1_bound(cat_ops)
+        k2["bound_ms"], k2["bound_by"], _ = k2_bound(operands, kb, state,
+                                                     got)
+        row = dict(pass_index=i, valid=int(ts.valid.sum()),
+                   kblocks_processed=int(got.kblocks_processed.sum()),
+                   k2_max_abs_err=err, k1=k1, k2=k2)
+        rows.append(row)
+        log(f"[passes] pass {i}: {row['valid']} valid entries, "
+            f"{row['kblocks_processed']} K-blocks run; K1 {k1['ms']:.4f} ms "
+            f"(bound {k1['bound_ms']:.4f}), K2 {k2['ms']:.4f} ms (bound "
+            f"{k2['bound_ms']:.4f})")
+        state = (got.trans, got.rgb, got.processed, got.blended)
+        del got, want
+
+    # An all-empty pass: pass 0's operands with every slot invalid.
+    cat_ops = list(ops.entry_cat_operands(ps.proj, ps.grid, streams[0].lists,
+                                          streams[0].valid))
+    cat_ops[5] = torch.full_like(cat_ops[5], float("-inf"))
+    check(int(prtu.prtu_entry_cat_mask(*cat_ops, **kw).abs().sum()) == 0,
+          "K1 hits on an all-empty pass")
+    empty = {"ms": device_ms(
+        lambda: prtu.prtu_entry_cat_mask(*cat_ops, **kw), PASS_REPS)}
+    empty["bound_ms"], empty["bound_by"] = k1_bound(cat_ops)
+    sums = {}
+    for k in ("k1", "k2"):
+        for field in ("ms", "bound_ms"):
+            sums[f"{k}_{field}"] = sum(r[k][field] for r in rows)
+    log(f"[passes] {len(rows)} passes: K1 {sums['k1_ms']:.3f} ms a frame "
+        f"(bound {sums['k1_bound_ms']:.3f}), K2 {sums['k2_ms']:.3f} ms "
+        f"(bound {sums['k2_bound_ms']:.3f}); K1 on an all-empty pass "
+        f"{empty['ms']:.4f} ms (bound {empty['bound_ms']:.4f})")
+    return dict(rows=rows, sums=sums, empty_k1=empty, passes=len(rows))
 
 
 # ---------------------------------------------------------------------------
@@ -701,10 +882,37 @@ def phase_unfused(dvs: dict) -> dict:
                 launches=launches, max_abs_err_vs_fused=err)
 
 
+def write_json(path, summary: dict) -> None:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(summary, f, indent=1, default=str)
+
+
+def passes_only(summary: dict, json_path) -> int:
+    """Phase 4c alone: serve the requests (which settles the plan's spill
+    passes as in a full run), then time K1 and K2 on every pass of request
+    0's frame. Prints the card line and, last, the per-frame sums."""
+    engine, name = hd1080_engine()
+    phase_serve(engine, name)
+    cam = hd1080_cameras(N_REQUESTS)[0].to(engine.device)
+    summary["passes"] = timed_phase(
+        "passes", phase_passes, engine.plan_for(name, 1088, 1920),
+        engine.scene(name), cam)
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(json.dumps(dict(summary["passes"]["sums"],
+                          empty_k1_ms=summary["passes"]["empty_k1"]["ms"])))
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", metavar="PATH",
                         help="also write every measurement to this file")
+    parser.add_argument("--passes-only", action="store_true",
+                        help="run only the build and phase 4c (K1 and K2 "
+                        "on every pass of one frame)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -719,6 +927,9 @@ def main() -> int:
     log(f"[build] {built} in {time.perf_counter() - t0:.2f} s")
     summary = {"card": card, "build_s": built,
                "torch": torch.__version__, "cuda": torch.version.cuda}
+    if args.passes_only:
+        return passes_only(summary, args.json)
+    summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
     engine, name = hd1080_engine()
@@ -742,7 +953,10 @@ def main() -> int:
     del houts, streams, ps
     summary["serve"] = phase_serve(engine, name)
     summary["breakdown"] = phase_breakdown(engine, name)
-    del engine
+    plan = engine.plan_for(name, 1088, 1920)
+    summary["passes"] = timed_phase(
+        "passes", phase_passes, plan, engine.scene(name), cam)
+    del engine, plan
 
     pt = timed_phase("1024 setup", p1024_setup)
     summary["k4"] = timed_phase("k4", phase_k4, pt)
@@ -773,11 +987,7 @@ def main() -> int:
             max_abs_err=res["max_abs_err"], ms=res["ms"],
             plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None, phase="ok"))
-    if args.json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json)),
-                    exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump(summary, f, indent=1, default=str)
+    write_json(args.json, summary)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

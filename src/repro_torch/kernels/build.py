@@ -7,6 +7,10 @@ of every shared header `csrc/*.cuh` and of the flags, so an edited kernel
 or header rebuilds every kernel it may reach, and an unchanged one loads
 from the previous build. All sources compile in parallel, one `nvcc` each.
 
+Each build runs with `-Xptxas -v` and prints the compiler's output as it
+is: per kernel (by its mangled name), the assembler's register,
+shared-memory, stack and spill lines.
+
 Importing this module builds nothing and needs no `nvcc`: the CPU tests
 import every module of the package on machines without a CUDA toolkit.
 """
@@ -24,7 +28,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -43,6 +48,13 @@ def check_operand(name: str, x, dtype, shape, device) -> None:
                          f"expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(name: str, x, n_bytes: int) -> None:
+    """Raise unless `x`'s data starts on an `n_bytes` boundary (a kernel
+    reads it in vectors of that width)."""
+    if x.data_ptr() % n_bytes:
+        raise ValueError(f"{name} must start on a {n_bytes}-byte boundary")
 
 
 def nvcc_path() -> str:
@@ -75,8 +87,7 @@ def build_all() -> dict[str, float]:
     Returns {source stem: build seconds} for the sources it compiled (an
     empty dict when everything was built already). Raises RuntimeError
     with the compiler output if any source fails."""
-    sources = sorted(CSRC.glob("*.cu"))
-    todo = [s for s in sources if not _target(s).exists()]
+    todo = [s for s in sorted(CSRC.glob("*.cu")) if not _target(s).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

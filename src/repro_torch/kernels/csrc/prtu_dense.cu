@@ -6,8 +6,9 @@
 // rectangle and writes one int8 hit flag, into a row-major (M, N) mask.
 //
 // What bounds it: operations. Every pair costs about 44 fp32 operations
-// plus, under a fp8 delta, four non-saturating e4m3 conversions (a
-// software routine), and writes one byte; the operands are a few bytes per
+// plus, under a fp8 delta, four e4m3 conversions (alg1.cuh: Hopper's
+// saturating hardware conversion with NaN restored past |x| = 464, in two
+// paired instructions), and writes one byte; the operands are a few bytes per
 // row and per column. The design keeps the column's data in registers and
 // the row's data in shared memory:
 //   * one thread per Gaussian column: it loads the Gaussian's mean, conic,

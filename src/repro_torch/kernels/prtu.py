@@ -8,6 +8,10 @@ Gaussian) pair of the frame and returns an (M, N) int8 mask
 (`csrc/prtu_dense.cu`). Both kernels share Alg. 1's per-pair body
 (`csrc/alg1.cuh`). On CUDA tensors each wrapper launches its kernel; on
 CPU tensors it runs its plain PyTorch version (`core.cat`'s Alg. 1).
+
+`alg1_quant` is a test hook into `csrc/alg1.cuh`: the kernels' one-value
+and two-value rounding steps applied to a float buffer, against the plain
+quantizer of `core.precision`.
 """
 from __future__ import annotations
 
@@ -17,8 +21,9 @@ import torch
 
 from repro_torch.core.cat import SamplingMode, pr_gaussian_weight, \
     select_mode
-from repro_torch.core.precision import PrecisionScheme
+from repro_torch.core.precision import PrecisionScheme, _quant
 from repro_torch.kernels import build
+from repro_torch.kernels.build import check_aligned
 from repro_torch.kernels.build import check_operand as check
 
 MODE_CODES = {"uniform_dense": 0, "uniform_sparse": 1, "smooth_focused": 2,
@@ -79,6 +84,7 @@ def prtu_entry_cat_mask(p_top_local: torch.Tensor, p_bot_local: torch.Tensor,
     check("conic", conic, f32, (t, k, 3), dev)
     check("lhs", lhs, f32, (t, k), dev)
     check("spiky", spiky, torch.int8, (t, k), dev)
+    check_aligned("mu", mu, 8)                     # read as float2
     if t * k >= 2 ** 31:
         raise ValueError(f"{t}x{k} entries exceed the kernel's int32 index")
     codes = _codes(mode, coord_prec, delta_prec, mul_prec, acc_prec)
@@ -156,6 +162,39 @@ def prtu_cat_mask(p_top: torch.Tensor, p_bot: torch.Tensor, mu: torch.Tensor,
         raise RuntimeError(f"prtu_cat_mask launch failed: cudaError {err}")
     global dense_launches
     dense_launches += 1
+    return out
+
+
+def alg1_quant(x: torch.Tensor, kind: str, paired: bool = False):
+    """`x` (float32, 1-D) rounded to precision `kind` ("fp32", "fp16",
+    "fp8") and back, as the PRTU kernels round each step of Alg. 1.
+
+    CPU tensors take the plain quantizer (`core.precision._quant`); CUDA
+    tensors launch `alg1::quant` of `csrc/alg1.cuh` elementwise, or its
+    two-value form `alg1::quant2` over consecutive pairs when `paired`
+    (then len(x) must be even). A test hook: no path of the renderer calls
+    it, and it counts no launches."""
+    if x.device.type == "cpu":
+        return _quant(x, kind)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    n = x.numel()
+    check("x", x, torch.float32, (n,), x.device)
+    if kind not in PREC_CODES:
+        raise ValueError(f"unknown precision {kind!r}")
+    if paired and n % 2:
+        raise ValueError("paired rounding needs an even length")
+    out = torch.empty_like(x)
+    hook = _lib().alg1_quant_launch
+    if hook.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        hook.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, vp]
+        hook.restype = ctypes.c_int
+    err = hook(
+        x.data_ptr(), out.data_ptr(), n, PREC_CODES[kind], int(paired),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"alg1_quant launch failed: cudaError {err}")
     return out
 
 

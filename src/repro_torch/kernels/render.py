@@ -10,7 +10,10 @@ kblocks_processed per tile).
 
 On CUDA tensors it launches the hand-written Hopper kernel
 `csrc/blend_fused.cu`; on CPU tensors it runs `blend_tiles_fused_plain`,
-the same chunked front-to-back fold in PyTorch.
+the same chunked front-to-back fold in PyTorch. Within each K_BLK chunk
+the entries some pixel was alive for form a prefix of the valid ones
+(transmittance never grows), which the kernel uses to report
+`entry_alive` without a vote per entry.
 
 `blend_tiles` (K3) is the full sweep the fused kernel is measured against:
 every slot of every tile, no termination, no counters, returning (rgb,
@@ -34,6 +37,7 @@ import torch
 from repro_torch.core.gaussians import ALPHA_MIN
 from repro_torch.core.raster import ALPHA_MAX, T_EPS, entry_alpha
 from repro_torch.kernels import build
+from repro_torch.kernels.build import check_aligned
 from repro_torch.kernels.build import check_operand as check
 
 K_BLK = 128
@@ -151,6 +155,8 @@ def blend_tiles_fused(pix: torch.Tensor, feat: torch.Tensor,
     check("acc0", acc0, f32, (t, PIXELS, 3), dev)
     check("p0", p0, f32, (t, PIXELS), dev)
     check("b0", b0, f32, (t, PIXELS), dev)
+    check_aligned("feat", feat, 16)               # copied in 16-byte pieces
+    check_aligned("allow", allow, 16)             # read as 16-byte rows
     rgb = torch.empty((t, p, 3), dtype=f32, device=dev)
     trans = torch.empty((t, p), dtype=f32, device=dev)
     proc = torch.empty((t, p), dtype=f32, device=dev)
@@ -170,8 +176,10 @@ def blend_tiles_fused(pix: torch.Tensor, feat: torch.Tensor,
                            f"{err}")
     global launches
     launches += 1
+    # The kernel writes only 0 and 1: read entry_alive as bool, no copy.
     return FusedBlendOut(rgb=rgb, trans=trans, processed=proc, blended=blnd,
-                         entry_alive=alive != 0, kblocks_processed=kproc,
+                         entry_alive=alive.view(torch.bool),
+                         kblocks_processed=kproc,
                          kblocks_total=-(-k // K_BLK))
 
 

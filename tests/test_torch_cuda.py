@@ -6,9 +6,14 @@ a GPU machine without them:
 
     PYTHONPATH=src python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: K1 (entry CAT) FULL_FP32 exact, MIXED flip rate < 5e-4; K2
-(fused blend) rgb/trans atol 2e-4, counters exact; K4 (dense CAT) exact
-under FULL_FP32 and MIXED; K3 (full-sweep blend) rgb/trans atol 1e-6. The
+Tolerances: K1 (entry CAT) FULL_FP32 exact, MIXED flip rate < 5e-4
+against the plain version on the CPU, and exact against the plain version
+on the card (leaders off the 4x4 lattice, an all-invalid pass, |Δ| on both
+sides of 464); K2 (fused blend) rgb/trans atol 2e-4, counters exact (also
+with sparse masks, ragged K and carried state); K4 (dense CAT) exact
+under FULL_FP32 and MIXED; K3 (full-sweep blend) rgb/trans atol 1e-6;
+the kernels' fp16/fp8 rounding (`prtu.alg1_quant`) bit-equal to the plain
+quantizer, NaN matching any NaN. The
 seeded numpy operand makers are shared with `test_torch_kernels.py` and
 `test_torch_dense.py`, which hold the same wrappers against the
 reference's Pallas kernels on the CPU.
@@ -22,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.precision import FULL_FP32, MIXED
+from repro_torch.core.precision import FULL_FP32, MIXED, PrecisionScheme
 from repro_torch.kernels import build, prtu, render
 
 T_TILES, K_ENTRIES = 8, 256
@@ -166,6 +171,125 @@ def test_full_blend_kernel_matches_plain(cuda):
     assert render.full_launches == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "mixed"])
+def test_entry_cat_kernel_off_lattice_matches_plain(cuda, prec):
+    """Leaders off the 4x4 lattice: the kernel's per-mini-tile path, 0
+    flips against the plain version on the card."""
+    p = {"fp32": FULL_FP32, "mixed": MIXED}[prec]
+    ops = list(cat_operands(7, t=64, k=512))
+    ops[0], ops[1] = ops[0].copy(), ops[1].copy()
+    ops[0][5, 0] += 0.25                     # top leader 5 leaves column 1
+    ops[1][10, 1] -= 0.5                     # bottom leader 10 leaves row 2
+    ops = [torch.from_numpy(x).to(cuda) for x in ops]
+    kw = dict(mode="smooth_focused", **prec_kw(p))
+    before = prtu.launches
+    got = prtu.prtu_entry_cat_mask(*ops, **kw)
+    assert prtu.launches == before + 1
+    want = prtu.prtu_entry_cat_mask_plain(*ops, **kw)
+    assert int(want.sum()) > 0
+    assert int((got != want).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_entry_cat_kernel_all_invalid_pass_is_zero(cuda):
+    """A pass with no valid entry (lhs = -inf everywhere, as the empty
+    spill passes of a frame): every flag 0."""
+    ops = list(cat_operands(8, t=64, k=512))
+    ops[5] = np.full_like(ops[5], -np.inf)
+    ops = [torch.from_numpy(x).to(cuda) for x in ops]
+    got = prtu.prtu_entry_cat_mask(*ops, mode="uniform_dense",
+                                   **prec_kw(MIXED))
+    assert got.shape == (64, 512, 16) and int(got.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "mixed", "fp8_delta"])
+def test_entry_cat_kernel_fp8_overflow_band(cuda, prec):
+    """Means 0-650 px from their tile, wide Gaussians that every leader
+    passes unless a delta overflows: 0 flips against the plain version on
+    the card; with a fp8 delta and wide products (fault F1) mini-tiles hit
+    at |Δ| up to 464, and none whose leader deltas all pass 464 in x or
+    all in y (NaN, not a saturated 448)."""
+    p = {"fp32": FULL_FP32, "mixed": MIXED,
+         "fp8_delta": PrecisionScheme("fp32", "fp8", "fp32", "fp32")}[prec]
+    t, k = 16, 256
+    rng = np.random.default_rng(9)
+    ops = list(cat_operands(9, t=t, k=k))
+    ops[3] = (ops[2][:, None, :] + 8.0
+              + rng.uniform(-650, 650, (t, k, 2))).astype(np.float32)
+    ops[4] = np.tile(np.array([1e-6, 0.0, 1e-6], np.float32), (t, k, 1))
+    ops[5] = np.full((t, k), 5.0, np.float32)
+    top, bot, origins, mu = ops[:4]
+    dev = [torch.from_numpy(x).to(cuda) for x in ops]
+    kw = dict(mode="uniform_dense", **prec_kw(p))
+    got = prtu.prtu_entry_cat_mask(*dev, **kw)
+    want = prtu.prtu_entry_cat_mask_plain(*dev, **kw)
+    assert int((got != want).sum()) == 0
+    if prec != "fp8_delta":
+        return
+    got = got.cpu().numpy()
+    far = np.zeros(got.shape, bool)
+    for a in (0, 1):                        # both leaders' deltas on axis a
+        lead_t = origins[:, None, None, a] + top[None, None, :, a]
+        lead_b = origins[:, None, None, a] + bot[None, None, :, a]
+        m = mu[:, :, None, a]
+        far |= (np.abs(lead_t - m) > 464) & (np.abs(lead_b - m) > 464)
+    near_edge = np.abs(np.abs(origins[:, None, None, 0] + top[None, None, :, 0]
+                              - mu[:, :, None, 0]) - 432) < 32
+    assert far.any() and not got[far].any()
+    assert got[near_edge & ~far].any()
+
+
+@pytest.mark.cuda
+def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
+    """K2 with ~30% of the mini-tile bits set, wide opaque entries (pixels
+    and whole tiles die mid-chunk), a ragged K = 300 and state carried from
+    a first pass: rgb/trans within 2e-4 of the plain version, counters
+    equal."""
+    t = 24
+    rng = np.random.default_rng(11)
+    first = [torch.from_numpy(x) for x in blend_operands(12, t=t, k=128)]
+    ops = list(blend_operands(11, t=t, k=300))
+    ops[1][..., 5] = rng.uniform(0.6, 0.99, ops[1].shape[:2])
+    ops[1][..., 2:5] /= 64                  # sigmas of 4-36 px
+    ops[4] = (rng.random(ops[4].shape) < 0.3).astype(np.int8)
+    ops = [torch.from_numpy(x) for x in ops]
+    a = render.blend_tiles_fused(*first)
+    init = (a.trans, a.rgb, a.processed, a.blended)
+    want = render.blend_tiles_fused(*ops, init=init)
+    assert bool(((a.trans >= 1e-4) & (want.trans < 1e-4)).any())
+    assert bool((want.kblocks_processed
+                 < render.kblock_bound_of(ops[3])).any())
+    got = render.blend_tiles_fused(*(x.to(cuda) for x in ops),
+                                   init=tuple(x.to(cuda) for x in init))
+    got = type(got)(*(x.cpu() if torch.is_tensor(x) else x for x in got))
+    assert_fused_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fp16", "fp8"])
+@pytest.mark.parametrize("paired", [False, True])
+def test_alg1_quant_matches_plain_quantizer(cuda, kind, paired):
+    """The kernels' rounding step on 2**22 float32 patterns: every
+    e4m3/fp16 boundary region (around 448-480, the subnormals, +-inf, NaN)
+    and random bits, bit-equal to the plain quantizer (or both NaN)."""
+    rng = np.random.default_rng(13)
+    edges = np.array([0.0, -0.0, 448, 449, 463.99, 464, 464.01, 480, 65504,
+                      65520, np.inf, -np.inf, np.nan, 2 ** -9, 2 ** -10,
+                      3 * 2 ** -11, 1e-40, -1e-40], np.float32)
+    band = np.linspace(-500, 500, 1 << 20, dtype=np.float32)
+    tiny = np.linspace(-2 ** -5, 2 ** -5, 1 << 20, dtype=np.float32)
+    bits = rng.integers(0, 2 ** 32, (1 << 21) - edges.size,
+                        dtype=np.uint64).astype(np.uint32).view(np.float32)
+    x = torch.from_numpy(np.concatenate([edges, band, tiny, bits]))
+    want = prtu.alg1_quant(x, kind)
+    got = prtu.alg1_quant(x.to(cuda), kind, paired=paired).cpu()
+    same = (got.view(torch.int32) == want.view(torch.int32)) \
+        | (got.isnan() & want.isnan())
+    assert bool(same.all()), x[~same][:8]
 
 
 def test_edited_header_rebuilds_both_prtu_kernels(tmp_path, monkeypatch):

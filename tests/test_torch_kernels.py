@@ -8,6 +8,12 @@ reference runs its Pallas kernel in interpret mode (K <= 256). Tolerances:
   K2 (fused blend)    rgb/trans atol 2e-4, counters exact, also when the
                       list is split into two chained passes
   fused-blend oracle  counters exact, rgb/trans atol 2e-4
+  entry_alive prefix  within each K_BLK chunk, entry_alive == valid & (kk <=
+                      some prefix end): exact for the plain fused blend; for
+                      the reference's Pallas kernel (in-block cumprod) a break
+                      is allowed only in a tile whose transmittance comes
+                      within 1e-6 of T_EPS
+  leader lattice      exact
 
 The CUDA kernels themselves are held against these plain versions on the
 card by `test_torch_cuda.py`, which also holds the seeded operand builders.
@@ -18,13 +24,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.culling import TileGrid as JGrid
+from repro.core.gaussians import project as jproject
 from repro.kernels import prtu as jprtu
 from repro.kernels import ref as jref
 from repro.kernels import render as jrender
 
+from repro_torch import convert
+from repro_torch.core import (GridConfig, ProjectedScene, RasterConfig,
+                              Renderer, StreamConfig, TestConfig)
+from repro_torch.core.cat import leader_corners
+from repro_torch.core.culling import TileGrid
 from repro_torch.core.precision import (FULL_FP32, MIXED, FULL_FP8,
                                         PrecisionScheme)
-from repro_torch.kernels import build, prtu, ref, render
+from repro_torch.core.raster import T_EPS, entry_alpha
+from repro_torch.kernels import build, ops as kops, prtu, ref, render
 
 from test_torch_cuda import (T_TILES, K_ENTRIES, assert_fused_equal,
                              blend_operands, cat_operands,
@@ -165,3 +179,96 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         check("x", x.t(), torch.float32, (3, 4), x.device)
     with pytest.raises(ValueError, match="expected meta"):
         check("x", x, torch.float32, (4, 3), meta)
+
+
+def scene_blend_operands(scene, camera, size=64, k_max=256):
+    """The fused blend's operands for the first pass of a real frame: the
+    reference's projection of `scene`, the port's Stage 1 and CTU at
+    FULL_FP32 (lists of at most k_max entries per tile)."""
+    plan = Renderer(grid=GridConfig(size, size),
+                    test=TestConfig(backend="torch", precision=FULL_FP32),
+                    stream=StreamConfig(k_max=k_max),
+                    raster=RasterConfig()).plan
+    proj = jproject(scene, camera)
+    ps = ProjectedScene(convert.projected_from_numpy(
+        {f: np.asarray(getattr(proj, f)) for f in proj._fields}),
+        plan.grid.make())
+    ts = plan.stage1_compact(ps)[0]
+    h = plan.ctu(ps, ts)
+    return kops.gather_tile_features(ps.proj, ps.grid, h.lists, h.valid,
+                                     h.entry_mini_mask)
+
+
+def prefix_breaks(alive, valid) -> set:
+    """Tiles where, in some K_BLK chunk, `alive` is not `valid & (kk <= m)`
+    for any prefix end m. alive, valid: (T, K) numpy bool."""
+    bad = set()
+    for c0 in range(0, alive.shape[1], render.K_BLK):
+        a, v = alive[:, c0:c0 + render.K_BLK], valid[:, c0:c0 + render.K_BLK]
+        kk = np.arange(a.shape[1])
+        last = np.where(a.any(1), np.max(np.where(a, kk, -1), axis=1), -1)
+        expect = v & (kk[None] <= last[:, None])
+        bad |= set(np.nonzero((expect != a).any(1))[0].tolist())
+    return bad
+
+
+def closest_to_t_eps(operands, tile) -> float:
+    """Min |T - T_EPS| over every entry the plain front-to-back fold of
+    `tile` visits (where a reassociated transmittance may fall on the
+    other side of T_EPS)."""
+    pix, feat, _, valid, allow = (x[tile:tile + 1] for x in operands)
+    mt = render.pixel_minitile_index(pix.shape[1], allow.shape[2])
+    trans = torch.ones(pix.shape[:2])
+    closest = float("inf")
+    for k in range(feat.shape[1]):
+        closest = min(closest, float((trans - T_EPS).abs().min()))
+        lane = (valid[:, k, None] != 0) & (allow[:, k][:, mt] != 0)
+        a = entry_alpha(pix, feat[:, k, 0:2], feat[:, k, 2:5], feat[:, k, 5],
+                        lane)
+        trans = trans * (1.0 - a)
+    return closest
+
+
+@pytest.mark.parametrize("scene_name", ["small_scene", "wall_scene"])
+def test_entry_alive_is_a_prefix_of_each_chunk(request, cam64, scene_name):
+    """The invariant the CUDA fused blend reports entry_alive by: within
+    each K_BLK chunk the entries some pixel was alive for are the valid
+    entries up to one prefix end (transmittance never grows). Exact for
+    the plain fused blend; the reference's Pallas kernel may break it only
+    at a T_EPS tie of its in-block cumprod."""
+    operands = scene_blend_operands(request.getfixturevalue(scene_name),
+                                    cam64)
+    valid = operands[3].numpy() != 0
+    assert operands[1].shape[1] <= 256 and valid.any()
+    plain = render.blend_tiles_fused(*operands)
+    alive = plain.entry_alive.numpy()
+    assert alive.any()
+    assert prefix_breaks(alive, valid) == set()
+    want = jrender.blend_tiles_fused(*(jnp.asarray(x.numpy())
+                                       for x in operands), interpret=True)
+    for tile in prefix_breaks(np.asarray(want.entry_alive), valid):
+        assert closest_to_t_eps(operands, tile) <= 1e-6, tile
+    if scene_name == "wall_scene":        # the prefix ends inside a chunk
+        run = plain.kblocks_processed.numpy()
+        assert (run < render.kblock_bound_of(operands[3]).numpy()).any()
+        assert (valid & ~alive).any()
+
+
+def test_leader_corners_lie_on_the_lattice():
+    """K1 hoists Alg. 1's separable half onto the 4x4 leader lattice: the
+    port's leader corners (those `ops.entry_cat_operands` hands the
+    kernel) keep x fixed down each mini-tile column and y along each row,
+    and equal the reference's tile-local leaders."""
+    grid = TileGrid(64, 64)
+    top, bot = leader_corners(grid)
+    j = np.arange(16)
+    for p in (top.numpy(), bot.numpy()):
+        np.testing.assert_array_equal(p[:, 0], p[j % 4, 0])
+        np.testing.assert_array_equal(p[:, 1], p[4 * (j // 4), 1])
+    assert len(np.unique(top.numpy()[:, 0])) == 4
+    assert len(np.unique(bot.numpy()[:, 1])) == 4
+    jgrid = JGrid(64, 64)
+    local = np.asarray(jgrid.minitile_local_origins(), np.float32)
+    m = float(jgrid.minitile - 1)
+    np.testing.assert_array_equal(top.numpy(), local + 0.5)
+    np.testing.assert_array_equal(bot.numpy(), local + (m + 0.5))
