@@ -78,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
@@ -136,7 +137,13 @@ QUANT_CHUNK = 1 << 28                # float32 patterns per rounding check
 # the 32-byte row is padding; colour 12, valid 1, allow 16).
 K1_VALID_ENTRY_BYTES = 21
 K2_ENTRY_BYTES = 53
+# Bytes K3 must read per list slot (allow 16, valid 1) and per entry with a
+# set lane (features 24, colour 12), and write per pixel (rgb 12, T 4).
+K3_SLOT_BYTES = 17
+K3_ENTRY_BYTES = 36
+K3_PIXEL_BYTES = 16
 PASS_REPS = 20                       # CUDA graph replays per device time
+K4_TAKES_WIDTH = "width" in inspect.signature(prtu.prtu_cat_mask).parameters
 
 
 def log(msg: str) -> None:
@@ -441,8 +448,9 @@ def k2_bound(operands, kb, init, got) -> tuple[float, str, int]:
 # ---------------------------------------------------------------------------
 
 def k3_against_plain(operands, label: str) -> dict:
-    """K3 within 1e-6 of its plain version on `operands`; its ms, plain
-    ms and bound there."""
+    """K3 within 1e-6 of its plain version on `operands`; its device ms
+    (CUDA graph replays), plain ms and bound there, and the lane slots its
+    walk issues against the lanes the data needs."""
     pix, feat, _, valid, allow = operands
     got = render.blend_tiles(*operands)
     want = render.blend_tiles_plain(*operands)
@@ -450,20 +458,72 @@ def k3_against_plain(operands, label: str) -> dict:
     check(err <= 1e-6, f"K3 ({label}) differs from its plain version by "
           f"{err}")
     result = {"max_abs_err": err}
-    result["ms"] = time_ms(lambda: render.blend_tiles(*operands), 20)
+    result["ms"] = device_ms(lambda: render.blend_tiles(*operands),
+                             PASS_REPS)
     result["plain_ms"] = time_ms(lambda: render.blend_tiles_plain(*operands),
                                  1)
     t, k = valid.shape
     n_valid = int((valid != 0).sum())
-    lanes = result["lanes"] = blend_lanes(pix, allow, valid != 0)
-    result["bound_ms"], result["bound_by"] = bound_ms(
-        nbytes(*operands, *got), lanes * K3_OPS_PER_LANE)
+    result["bound_ms"], result["bound_by"], lanes = k3_bound(operands)
+    result["lanes"] = lanes
+    walks = {}
+    if hasattr(render, "FULL_WALK"):
+        chosen = render.FULL_WALK
+        for walk in (0, 1, 2):
+            render.FULL_WALK = walk
+            try:
+                g = render.blend_tiles(*operands)
+                e = max(float((a - w).abs().max()) for a, w in zip(g, want))
+                check(e <= 1e-6, f"K3 walk {walk} ({label}) differs by {e}")
+                walks[walk] = dict(max_abs_err=e, slots=k3_walk_slots(
+                    valid, allow, walk), ms=device_ms(
+                        lambda: render.blend_tiles(*operands), PASS_REPS))
+            finally:
+                render.FULL_WALK = chosen
+            log(f"[k3] {label}: walk {walk}: {walks[walk]['ms']:.4f} ms, "
+                f"{walks[walk]['slots']} lane slots issued, max |Δ| {e:.3g}")
+        result["walks"] = walks
+        result["lane_slots"] = walks[chosen]["slots"]
     log(f"[k3] {label}: max |Δ| rgb/trans vs plain {err:.3g}; "
         f"{result['ms']:.4f} ms/pass (plain {result['plain_ms']:.1f} ms), "
         f"bound {result['bound_ms']:.4f} ms by {result['bound_by']}; "
         f"{t * k} slots swept, {n_valid} valid, {lanes} pixel-entry lanes "
-        "needed")
+        f"needed, {result.get('lane_slots')} lane slots issued")
     return result
+
+
+def k3_bound(operands) -> tuple[float, str, int]:
+    """K3's bound on one call: read every slot's allow bytes and valid
+    byte, the features and colour of each entry with a set lane, and the
+    pixel centres; write every pixel's rgb and T; the operations of the
+    lanes the data needs. Returns (ms, "bytes" or "operations", lanes)."""
+    pix, _, _, valid, allow = operands
+    entries = (valid != 0) & (allow != 0).any(dim=2)
+    n_bytes = (valid.numel() * K3_SLOT_BYTES
+               + int(entries.sum()) * K3_ENTRY_BYTES + nbytes(pix)
+               + pix.shape[0] * pix.shape[1] * K3_PIXEL_BYTES)
+    lanes = blend_lanes(pix, allow, valid != 0)
+    ms, by = bound_ms(n_bytes, lanes * K3_OPS_PER_LANE)
+    return ms, by, lanes
+
+
+def k3_walk_slots(valid, allow, walk: int) -> int:
+    """Lane slots (32 per warp step) K3's walk issues on these masks: walk
+    0 steps once per entry either of a warp's two mini-tile bits is set
+    for, walk 1 max(len A, len B) times per 32 entries, walk 2 once per two
+    entries of a warp's mini-tile in each 128-entry chunk."""
+    bits = (allow != 0) & (valid != 0)[:, :, None]            # (T, K, 16)
+    t, k, mt = bits.shape
+    pad = -k % render.K_BLK
+    bits = torch.cat([bits, bits.new_zeros((t, pad, mt))], 1)
+    if walk == 2:
+        per = bits.view(t, -1, render.K_BLK, mt).sum(2, dtype=torch.int64)
+        return int(((per + 1) // 2).sum()) * 32
+    grp = bits.view(t, -1, 32, mt // 2, 2)
+    if walk == 0:
+        return int(grp.any(4).sum(dtype=torch.int64)) * 32
+    per = grp.sum(2, dtype=torch.int64)                       # (T, G, 8, 2)
+    return int(per.max(3).values.sum()) * 32
 
 
 def phase_k3(proj, grid, hout, k2: dict) -> dict:
@@ -733,15 +793,54 @@ def far_pairs(operands, kw, mask) -> tuple[int, int]:
     return pairs, hits
 
 
+def k4_call(operands, kw, width):
+    """K4 through its wrapper, told the image's width in mini-tiles where
+    the wrapper takes it (a tree whose K4 reads rows as a band does not)."""
+    extra = {"width": width} if K4_TAKES_WIDTH else {}
+    return prtu.prtu_cat_mask(*operands, **kw, **extra)
+
+
+def k4_pairs(operands, kw, width: int) -> tuple[int, int]:
+    """(pairs K4 evaluates, pairs that can hit) on the mask of an image
+    `width` mini-tiles wide, from the operands. A pair can hit unless its
+    Gaussian is culled or, under a fp8 delta, its two leader x deltas, or
+    its two leader y deltas, are NaN (|Δ| > 464 px after the coordinate
+    quantization, fault F1). K4 evaluates the live columns of each
+    DENSE_SIDE² region of mini-tiles, less those whose every x, or every y,
+    in the region is such a pair of deltas."""
+    p_top, p_bot, mu, _, lhs, _ = operands
+    m, n = p_top.shape[0], mu.shape[0]
+    live = torch.isfinite(lhs).to(torch.int64)
+    if kw["delta_prec"] != "fp8":
+        return m * int(live.sum()), m * int(live.sum())
+    height = m // width
+    side = getattr(prtu, "DENSE_SIDE", 8)
+    q = lambda x: _quant(x, kw["coord_prec"])  # noqa: E731
+    mq = q(mu)
+
+    def far(top, bot, mu_a):                   # (len, N): both deltas NaN
+        nan = lambda d: ~(d.abs() <= 464)      # noqa: E731
+        return nan(q(top)[:, None] - mu_a) & nan(q(bot)[:, None] - mu_a)
+
+    fx = far(p_top[:width, 0], p_bot[:width, 0], mq[:, 0])    # (W, N)
+    fy = far(p_top[::width, 1], p_bot[::width, 1], mq[:, 1])  # (H, N)
+    need = ((~fx).sum(0) * (~fy).sum(0) * live).sum()
+    rx = (~fx.view(width // side, side, n).all(1)).sum(0)
+    ry = (~fy.view(height // side, side, n).all(1)).sum(0)
+    return int((rx * ry * live).sum()) * side * side, int(need)
+
+
 def phase_k4(pt: dict) -> dict:
     plan, scene, cam = pt["plan"], pt["scene"], pt["cam"]
     ps = plan.preprocess(scene, cam)
     operands = ops.cat_mask_operands(ps.proj, ps.grid)
+    width = ps.grid.width // ps.grid.minitile
     m, n = operands[0].shape[0], operands[2].shape[0]
-    result = {"rows": m, "columns": n}
+    n_live = int(torch.isfinite(operands[4]).sum())
+    result = {"rows": m, "columns": n, "live_columns": n_live}
     for name, p in (("fp32", FULL_FP32), ("mixed", MIXED)):
         kw = prec_kw(p)
-        got = prtu.prtu_cat_mask(*operands, **kw)
+        got = k4_call(operands, kw, width)
         want = plain_dense_mask(operands, kw)
         flips = sum(int((got[r] != want[r]).sum())
                     for r in row_blocks(m, n))
@@ -757,16 +856,27 @@ def phase_k4(pt: dict) -> dict:
             check(result["far_pairs"] > 0 and far_hits == 0,
                   "K4 hits where every fp8 delta overflows")
         del got, want
+        evaluated, needed = k4_pairs(operands, kw, width)
+        if name == "mixed":
+            check(needed == n_live * m - result["far_pairs"],
+                  "K4's pair counts disagree with the far-pair count")
+        ms = time_ms(lambda: k4_call(operands, kw, width), 10)
+        # Every flag is written; the operations are those of the pairs
+        # that can hit.
+        bound, by = bound_ms(nbytes(*operands) + m * n,
+                             needed * K1_OPS_PER_TEST)
+        result[name] = dict(ms=ms, bound_ms=bound, bound_by=by,
+                            pairs_evaluated=evaluated, pairs_needed=needed)
+        log(f"[k4] {name}: {ms:.3f} ms/call, bound {bound:.4f} ms by {by}; "
+            f"{evaluated} pairs evaluated, {needed} can hit ({m} mini-tiles "
+            f"x {n} Gaussians, {n_live} in frustum)")
     kw = prec_kw(MIXED)
     result["max_abs_err"] = float(result["flips_mixed"])
-    result["ms"] = time_ms(lambda: prtu.prtu_cat_mask(*operands, **kw), 10)
+    result["ms"] = result["mixed"]["ms"]
+    result["bound_ms"] = result["mixed"]["bound_ms"]
+    result["bound_by"] = result["mixed"]["bound_by"]
     result["plain_ms"] = time_ms(lambda: plain_dense_mask(operands, kw), 1)
-    n_live = int(torch.isfinite(operands[4]).sum())
-    result["bound_ms"], result["bound_by"] = bound_ms(
-        nbytes(*operands) + m * n, m * n_live * K1_OPS_PER_TEST)
-    log(f"[k4] {result['ms']:.3f} ms/call (plain {result['plain_ms']:.1f} "
-        f"ms), bound {result['bound_ms']:.4f} ms by {result['bound_by']}; "
-        f"{m} mini-tiles x {n} Gaussians, {n_live} in frustum")
+    log(f"[k4] mixed: plain version {result['plain_ms']:.1f} ms/call")
     return result
 
 
@@ -906,6 +1016,38 @@ def passes_only(summary: dict, json_path) -> int:
     return 0
 
 
+def offpath_only(summary: dict, json_path) -> int:
+    """The off-path kernels alone: the p1024 setup, phase 6a (K4 under
+    FULL_FP32 and MIXED: 0 flips on the full mask, the fp8 overflow check,
+    ms and pairs) and K3 on the p1024 stream frame's lists (against its
+    plain version, device ms). Prints the card line, one line of the
+    times, and the contract's last line."""
+    pt = timed_phase("1024 setup", p1024_setup)
+    summary["k4"] = timed_phase("k4", phase_k4, pt)
+    plan, scene, cam = pt["plan"], pt["scene"], pt["cam"]
+    ps = plan.preprocess(scene, cam)
+    ts, = plan.stage1_compact(ps)
+    h = plan.ctu(ps, ts)
+    operands = ops.gather_tile_features(ps.proj, ps.grid, h.lists, h.valid,
+                                        h.entry_mini_mask)
+    summary["k3"] = timed_phase("k3", k3_against_plain, operands,
+                                "1024 frame")
+    write_json(json_path, summary)
+    print(json.dumps(dict(
+        k4_mixed_ms=summary["k4"]["mixed"]["ms"],
+        k4_fp32_ms=summary["k4"]["fp32"]["ms"],
+        k3_ms=summary["k3"]["ms"])))
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
+def ok_line() -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", metavar="PATH",
@@ -913,6 +1055,9 @@ def main() -> int:
     parser.add_argument("--passes-only", action="store_true",
                         help="run only the build and phase 4c (K1 and K2 "
                         "on every pass of one frame)")
+    parser.add_argument("--offpath-only", action="store_true",
+                        help="run only the build, the p1024 setup, K4 "
+                        "(phase 6a) and K3 on the p1024 lists")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -929,6 +1074,8 @@ def main() -> int:
                "torch": torch.__version__, "cuda": torch.version.cuda}
     if args.passes_only:
         return passes_only(summary, args.json)
+    if args.offpath_only:
+        return offpath_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -990,9 +1137,7 @@ def main() -> int:
     write_json(args.json, summary)
     print(json.dumps({"kernels": kernels}))
     print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(ok_line())
     return 0
 
 

@@ -5,27 +5,51 @@
 // of the frame it evaluates Alg. 1's four corner weights of g on m's pixel
 // rectangle and writes one int8 hit flag, into a row-major (M, N) mask.
 //
-// What bounds it: operations. Every pair costs about 44 fp32 operations
-// plus, under a fp8 delta, four e4m3 conversions (alg1.cuh: Hopper's
-// saturating hardware conversion with NaN restored past |x| = 464, in two
-// paired instructions), and writes one byte; the operands are a few bytes per
-// row and per column. The design keeps the column's data in registers and
-// the row's data in shared memory:
-//   * one thread per Gaussian column: it loads the Gaussian's mean, conic,
-//     lhs = ln(255 o) and spiky flag once, quantizes them once, and loops
-//     over a block of kRows mini-tile rows;
-//   * the block's kRows leader-pixel pairs, quantized to the coordinate
-//     precision once, sit in shared memory and are read as broadcasts;
-//   * a row's flags are written by consecutive threads to consecutive
-//     bytes of the row, so each warp stores one coalesced 32-byte segment.
+// What bounds it: the bytes of the mask it writes. At 1024x1024 with 131072
+// Gaussians the mask is 8.6 GB (2.57 ms at 3.35 TB/s), and it must be
+// written whole; the pairs that can hit are far fewer than M * N. A pair
+// costs about 44 fp32 operations and, under MIXED, 16 paired roundings.
+// The design evaluates only the pairs that can hit and writes every byte
+// once, in 16-byte stores:
+//   * a block owns one region of kSide x kSide mini-tiles (kRows mask rows
+//     of an image of `width` mini-tiles a row) and kCols consecutive
+//     Gaussian columns, and stages that (kRows, kCols) tile of flags in
+//     shared memory: zeroed, filled by the pairs it evaluates, then
+//     written out row by row with 16-byte stores (a warp writes 512
+//     contiguous bytes of one mask row). No pass of memset runs before it;
+//   * column compaction: a Gaussian whose lhs is not above -inf (culled, or
+//     NaN) never hits, so only the live columns enter the block's work
+//     list (ballot and a shared counter) and their zero flags come from
+//     the zeroed tile. A block with an empty list writes zeros straight
+//     from registers;
+//   * the fp8-overflow skip, only under a fp8 delta: a delta with
+//     !(|d| <= 464) rounds to NaN there (alg1.cuh, fault F1), and a pair
+//     whose two x deltas, or two y deltas, are NaN has four NaN corner
+//     weights and never hits. A column is dropped from the list when every
+//     distinct x of the region, or every distinct y, gives such a pair of
+//     deltas; the test is computed from those deltas themselves (fp32
+//     subtraction of the coordinate-quantized values), so NaN coordinates
+//     (FULL_FP8 above 464 px) are far as well. Under fp32 and fp16 deltas
+//     the skip does not exist: pairs beyond 464 px can hit there;
+//   * the separable half hoisted: the region's leaders lie on a lattice (x
+//     fixed down each column of the region, y along each row), so a column
+//     has kSide distinct (top, bottom) x deltas and their separable terms,
+//     computed once, and kSide distinct y pairs, computed once per region
+//     row; only the cross terms, the corner sums and the decision remain
+//     per pair. The lattice is checked, not assumed: the staged leaders
+//     are compared bit for bit, and off the lattice (or with a `width`
+//     that does not describe the rows) the block runs alg1::hit per pair,
+//     which is exact, and skips nothing but dead columns;
+//   * the delta, multiplier and adder precisions are template parameters
+//     (27 instances in one table, one launch site), so no per-pair rounding
+//     step branches; the coordinate precision is applied once per staged
+//     leader and once per column, at run time.
 // The TPU kernel's (128, 128) VMEM blocks and padding to block multiples do
-// not carry over: the grid covers the ragged edge and masks it, so there is
-// no padded column (the reference's padded Gaussians carry lhs = -inf and
-// never hit; so do culled ones here).
+// not carry over: the grid covers the ragged edges and masks them.
 //
 // Indexing: M * N reaches 8.6e9 at 1024x1024 with 131072 Gaussians, past
 // int32, so every output offset is computed in 64 bits (the wrapper checks
-// M and N each fit in int32).
+// M and N each fit in int32, and the grid's two dimensions).
 //
 // Numerics: Alg. 1 of alg1.cuh, one rounding per step, built with
 // -fmad=false, shared with the entry-stream kernel prtu_entry.cu: a dense
@@ -37,9 +61,167 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // Gaussian columns per block
-constexpr int kRows = 128;     // mini-tile rows per block
+constexpr int kThreads = 128;
+constexpr int kSide = 8;                // region side, in mini-tiles
+constexpr int kRows = kSide * kSide;    // mask rows per block
+constexpr int kCols = 512;              // Gaussian columns per block
+constexpr int kColsPerThread = kCols / kThreads;
+constexpr int kChunks = kCols / 16;     // 16-byte pieces of a tile row
 
+struct Geometry {
+  int m_rows, n_cols;
+  int width;      // mini-tiles per image row (the mask rows' layout)
+  int height;     // image rows of mini-tiles, ceil(m_rows / width)
+  int regions_x;  // ceil(width / kSide)
+};
+
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+
+// Whether a delta rounds to NaN under a fp8 delta (alg1::quant2, kind 2).
+__device__ __forceinline__ bool fp8_nan(float d) {
+  return !(fabsf(d) <= alg1::kFp8Overflow);
+}
+
+// alg1::decide with the sampling mode resolved per column: the sparse
+// decision uses the main diagonal (E0, E3); the dense one adds E1, E2.
+__device__ __forceinline__ bool uses_dense(int mode, bool spiky) {
+  switch (mode) {
+    case 0: return true;
+    case 1: return false;
+    case 2: return !spiky;
+    default: return spiky;
+  }
+}
+
+// Whether a corner weight passes: lhs > E * (1 - slack). With no slack
+// (kUnit) the product is E itself, bit for bit, and is not computed.
+template <bool kUnit>
+__device__ __forceinline__ bool passes(float l, float e, float k_slack) {
+  return kUnit ? l > e : l > e * k_slack;
+}
+
+// The flags of one Gaussian column over an on-lattice region: row
+// kSide * i + j has its top leader at (lead[j].x, lead[kSide i].y) and its
+// bottom leader at (lead[j].z, lead[kSide i].w), coordinate-quantized.
+template <int kDelta, int kMul, int kAcc, bool kUnit>
+__device__ __forceinline__ void region_hits(
+    const float4* __restrict__ lead, float mu_x, float mu_y, float cxx,
+    float cxy, float cyy, float l, bool dense, float k_slack,
+    uint8_t* __restrict__ col) {
+  float2 dx[kSide], sx[kSide];  // (top, bottom) x deltas and their terms
+#pragma unroll
+  for (int j = 0; j < kSide; ++j) {
+    const float4 a = lead[j];
+    dx[j] = alg1::delta2(a.x, a.z, mu_x, mu_x, kDelta);
+    sx[j] = alg1::separable2(dx[j], cxx, cxx, kMul);
+  }
+#pragma unroll 1
+  for (int i = 0; i < kSide; ++i) {
+    const float4 a = lead[kSide * i];
+    const float2 dy = alg1::delta2(a.y, a.w, mu_y, mu_y, kDelta);
+    const float2 sy = alg1::separable2(dy, cyy, cyy, kMul);
+#pragma unroll
+    for (int j = 0; j < kSide; ++j) {
+      const float2 t01 =
+          alg1::cross2(dx[j], make_float2(dy.x, dy.x), cxy, kMul);
+      const float2 t23 =
+          alg1::cross2(dx[j], make_float2(dy.y, dy.y), cxy, kMul);
+      const float2 e01 =
+          alg1::corner2(sx[j], make_float2(sy.x, sy.x), t01, kAcc);
+      const float2 e23 =
+          alg1::corner2(sx[j], make_float2(sy.y, sy.y), t23, kAcc);
+      const bool h0 = passes<kUnit>(l, e01.x, k_slack);
+      const bool h1 = passes<kUnit>(l, e01.y, k_slack);
+      const bool h2 = passes<kUnit>(l, e23.x, k_slack);
+      const bool h3 = passes<kUnit>(l, e23.y, k_slack);
+      col[(kSide * i + j) * kCols] =
+          static_cast<uint8_t>(h0 || h3 || (dense && (h1 || h2)));
+    }
+  }
+}
+
+// region_hits when every operand of the per-pair steps is a float16 value:
+// deltas rounded to fp16 or fp8 (e4m3 values are float16 values), the
+// conic's cxy rounded to fp16 or fp8, and products and sums rounded to
+// fp16 (mul_prec = acc_prec = fp16, as under MIXED). Then each step's
+// fp32 operation followed by one rounding to fp16 equals the float16
+// operation on the card, bit for bit: a product of two float16 values is
+// exact in fp32, and a sum rounded first to fp32 and then to fp16 rounds
+// as the sum rounded once, since fp32 carries 24 >= 2 * 11 + 2 bits. So
+// the cross terms and corner sums run as paired half-precision products
+// and sums (__hmul2_rn keeps the product from contracting into the sum),
+// with no conversion per step; the hoisted half and the decision are
+// region_hits'.
+template <int kDelta, bool kUnit>
+__device__ __forceinline__ void region_hits_half(
+    const float4* __restrict__ lead, float mu_x, float mu_y, float cxx,
+    float cxy, float cyy, float l, bool dense, float k_slack,
+    uint8_t* __restrict__ col) {
+  __half2 dx[kSide], sx[kSide];
+#pragma unroll
+  for (int j = 0; j < kSide; ++j) {
+    const float4 a = lead[j];
+    const float2 d = alg1::delta2(a.x, a.z, mu_x, mu_x, kDelta);
+    const float2 sep = alg1::separable2(d, cxx, cxx, 1);
+    dx[j] = __floats2half2_rn(d.x, d.y);        // exact: float16 values
+    sx[j] = __floats2half2_rn(sep.x, sep.y);
+  }
+  const __half2 c = __float2half2_rn(cxy);
+#pragma unroll 1
+  for (int i = 0; i < kSide; ++i) {
+    const float4 a = lead[kSide * i];
+    const float2 dy = alg1::delta2(a.y, a.w, mu_y, mu_y, kDelta);
+    const float2 sy = alg1::separable2(dy, cyy, cyy, 1);
+    const __half2 dt = __float2half2_rn(dy.x), db = __float2half2_rn(dy.y);
+    const __half2 st = __float2half2_rn(sy.x), sb = __float2half2_rn(sy.y);
+#pragma unroll
+    for (int j = 0; j < kSide; ++j) {
+      const __half2 t01 = __hmul2_rn(__hmul2_rn(dx[j], dt), c);
+      const __half2 t23 = __hmul2_rn(__hmul2_rn(dx[j], db), c);
+      const float2 e01 = __half22float2(__hadd2_rn(__hadd2_rn(sx[j], st),
+                                                   t01));
+      const float2 e23 = __half22float2(__hadd2_rn(__hadd2_rn(sx[j], sb),
+                                                   t23));
+      const bool h0 = passes<kUnit>(l, e01.x, k_slack);
+      const bool h1 = passes<kUnit>(l, e01.y, k_slack);
+      const bool h2 = passes<kUnit>(l, e23.x, k_slack);
+      const bool h3 = passes<kUnit>(l, e23.y, k_slack);
+      col[(kSide * i + j) * kCols] =
+          static_cast<uint8_t>(h0 || h3 || (dense && (h1 || h2)));
+    }
+  }
+}
+
+// One column over an on-lattice region: the float16 form where every
+// per-pair operand is a float16 value (coord_prec fp16 or fp8 for cxy),
+// and with or without the slack product.
+template <int kDelta, int kMul, int kAcc>
+__device__ __forceinline__ void column_hits(
+    const float4* __restrict__ lead, int coord_prec, float mu_x, float mu_y,
+    float cxx, float cxy, float cyy, float l, bool dense, float k_slack,
+    uint8_t* __restrict__ col) {
+  constexpr bool kHalf = kMul == 1 && kAcc == 1 && kDelta != 0;
+  if (kHalf && coord_prec != 0) {
+    if (k_slack == 1.f)
+      region_hits_half<kDelta, true>(lead, mu_x, mu_y, cxx, cxy, cyy, l,
+                                     dense, k_slack, col);
+    else
+      region_hits_half<kDelta, false>(lead, mu_x, mu_y, cxx, cxy, cyy, l,
+                                      dense, k_slack, col);
+  } else if (k_slack == 1.f) {
+    region_hits<kDelta, kMul, kAcc, true>(lead, mu_x, mu_y, cxx, cxy, cyy,
+                                          l, dense, k_slack, col);
+  } else {
+    region_hits<kDelta, kMul, kAcc, false>(lead, mu_x, mu_y, cxx, cxy, cyy,
+                                           l, dense, k_slack, col);
+  }
+}
+
+// Sampling modes: 0 uniform_dense, 1 uniform_sparse, 2 smooth_focused,
+// 3 spiky_focused.
+template <int kDelta, int kMul, int kAcc>
 __global__ void __launch_bounds__(kThreads) prtu_dense_kernel(
     const float* __restrict__ p_top,   // (M, 2) image-space leader coords
     const float* __restrict__ p_bot,   // (M, 2)
@@ -48,57 +230,207 @@ __global__ void __launch_bounds__(kThreads) prtu_dense_kernel(
     const float* __restrict__ lhs,     // (N,) ln(255 o), -inf if culled
     const int8_t* __restrict__ spiky,  // (N,)
     int8_t* __restrict__ out,          // (M, N)
-    int m_rows, int n_cols, int mode, int coord_prec, int delta_prec,
-    int mul_prec, int acc_prec, float k_slack) {
-  __shared__ float s_lead[kRows][4];   // quantized ptx, pty, pbx, pby
-  const int m0 = blockIdx.y * kRows;
-  const int rows = min(kRows, m_rows - m0);
-  for (int r = threadIdx.x; r < rows; r += kThreads) {
-    const long long m = m0 + r;
-    s_lead[r][0] = alg1::quant(p_top[2 * m], coord_prec);
-    s_lead[r][1] = alg1::quant(p_top[2 * m + 1], coord_prec);
-    s_lead[r][2] = alg1::quant(p_bot[2 * m], coord_prec);
-    s_lead[r][3] = alg1::quant(p_bot[2 * m + 1], coord_prec);
+    Geometry geo, int mode, int coord_prec, float k_slack) {
+  __shared__ __align__(16) uint8_t s_flags[kRows][kCols];
+  __shared__ float4 s_lead[kRows];     // quantized ptx, pty, pbx, pby
+  __shared__ uint16_t s_items[kCols];  // the columns to evaluate
+  __shared__ uint32_t s_valid[2];      // rows inside the mask, 64 bits
+  __shared__ int s_count;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int x0 = kSide * (blockIdx.x % geo.regions_x);
+  const int y0 = kSide * (blockIdx.x / geo.regions_x);
+  const long long c0 = static_cast<long long>(blockIdx.y) * kCols;
+  const int n_here = static_cast<int>(
+      min(static_cast<long long>(kCols), geo.n_cols - c0));
+  // Mask row of region row r = kSide * i + j (64-bit: y * width may pass
+  // int32 on a ragged last region).
+  auto row_of = [&](int r) {
+    return static_cast<long long>(y0 + r / kSide) * geo.width + x0 +
+           r % kSide;
+  };
+
+  if (tid == 0) s_count = 0;
+  if (tid < kRows) {
+    const bool valid = x0 + tid % kSide < geo.width &&
+                       y0 + tid / kSide < geo.height &&
+                       row_of(tid) < geo.m_rows;
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (valid) {
+      const long long m = row_of(tid);
+      const float2 t = reinterpret_cast<const float2*>(p_top)[m];
+      const float2 b = reinterpret_cast<const float2*>(p_bot)[m];
+      const float2 tq = alg1::quant2(t.x, t.y, coord_prec);
+      const float2 bq = alg1::quant2(b.x, b.y, coord_prec);
+      q = make_float4(tq.x, tq.y, bq.x, bq.y);
+    }
+    s_lead[tid] = q;
+    const uint32_t bits = __ballot_sync(0xffffffffu, valid);
+    if (lane == 0) s_valid[tid >> 5] = bits;
   }
   __syncthreads();
-  const int g = blockIdx.x * kThreads + threadIdx.x;
-  if (g >= n_cols) return;
-  const float2 mg = reinterpret_cast<const float2*>(mu)[g];
-  const float mu_x = alg1::quant(mg.x, coord_prec);
-  const float mu_y = alg1::quant(mg.y, coord_prec);
-  const float cxx = alg1::quant(conic[3 * g], coord_prec);
-  const float cxy = alg1::quant(conic[3 * g + 1], coord_prec);
-  const float cyy = alg1::quant(conic[3 * g + 2], coord_prec);
-  const float l = lhs[g];
-  const bool sp = spiky[g] != 0;
-  int8_t* col = out + static_cast<long long>(m0) * n_cols + g;
-  for (int r = 0; r < rows; ++r) {
-    const bool hit = alg1::hit(s_lead[r][0], s_lead[r][1], s_lead[r][2],
-                               s_lead[r][3], mu_x, mu_y, cxx, cxy, cyy, l,
-                               sp, mode, delta_prec, mul_prec, acc_prec,
-                               k_slack);
-    col[static_cast<long long>(r) * n_cols] = static_cast<int8_t>(hit);
+  const unsigned long long valid_rows =
+      (static_cast<unsigned long long>(s_valid[1]) << 32) | s_valid[0];
+  auto row_valid = [&](int r) { return ((valid_rows >> r) & 1ull) != 0; };
+
+  // The lattice: every row's x equals its region column's in row 0, its y
+  // its region row's in column 0, bit for bit, top and bottom. A valid row
+  // (i, j) implies valid rows (0, j) and (i, 0).
+  bool ok = true;
+  if (tid < kRows && row_valid(tid)) {
+    const float4 q = s_lead[tid];
+    const float4 cx = s_lead[tid % kSide];
+    const float4 cy = s_lead[tid - tid % kSide];
+    ok = same_bits(q.x, cx.x) && same_bits(q.z, cx.z) &&
+         same_bits(q.y, cy.y) && same_bits(q.w, cy.w);
+  }
+  const bool lattice = __syncthreads_and(ok) != 0;
+
+  // Column compaction: live columns, less those the fp8 skip drops.
+#pragma unroll
+  for (int s = 0; s < kColsPerThread; ++s) {
+    const int c = s * kThreads + tid;
+    bool keep = false;
+    if (c < n_here) {
+      const long long g = c0 + c;
+      keep = lhs[g] > __uint_as_float(0xff800000u);  // -inf, NaN never hit
+      if (kDelta == 2 && keep && lattice) {
+        const float2 mg = reinterpret_cast<const float2*>(mu)[g];
+        const float2 mq = alg1::quant2(mg.x, mg.y, coord_prec);
+        bool far_x = true, far_y = true;
+#pragma unroll
+        for (int k = 0; k < kSide; ++k) {
+          if (row_valid(k)) {
+            const float4 a = s_lead[k];
+            far_x = far_x && fp8_nan(a.x - mq.x) && fp8_nan(a.z - mq.x);
+          }
+          if (row_valid(kSide * k)) {
+            const float4 a = s_lead[kSide * k];
+            far_y = far_y && fp8_nan(a.y - mq.y) && fp8_nan(a.w - mq.y);
+          }
+        }
+        keep = !(far_x || far_y);
+      }
+    }
+    const uint32_t ballot = __ballot_sync(0xffffffffu, keep);
+    int base = 0;
+    if (lane == 0 && ballot) base = atomicAdd(&s_count, __popc(ballot));
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (keep)
+      s_items[base + __popc(ballot & ((1u << lane) - 1u))] =
+          static_cast<uint16_t>(c);
+  }
+  __syncthreads();
+  const int n_items = s_count;
+
+  if (n_items > 0) {
+    uint4* tile = reinterpret_cast<uint4*>(&s_flags[0][0]);
+    for (int k = tid; k < kRows * kChunks; k += kThreads)
+      tile[k] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+    for (int it = tid; it < n_items; it += kThreads) {
+      const int c = s_items[it];
+      const long long g = c0 + c;
+      const float2 mg = reinterpret_cast<const float2*>(mu)[g];
+      const float2 mq = alg1::quant2(mg.x, mg.y, coord_prec);
+      const float2 cq = alg1::quant2(conic[3 * g], conic[3 * g + 2],
+                                     coord_prec);
+      const float cxy = alg1::quant(conic[3 * g + 1], coord_prec);
+      const float l = lhs[g];
+      const bool sp = spiky[g] != 0;
+      uint8_t* col = &s_flags[0][c];
+      if (lattice) {
+        column_hits<kDelta, kMul, kAcc>(s_lead, coord_prec, mq.x, mq.y, cq.x,
+                                        cxy, cq.y, l, uses_dense(mode, sp),
+                                        k_slack, col);
+      } else {
+        for (int r = 0; r < kRows; ++r) {
+          if (!row_valid(r)) continue;
+          const float4 a = s_lead[r];
+          col[r * kCols] = static_cast<uint8_t>(alg1::hit(
+              a.x, a.y, a.z, a.w, mq.x, mq.y, cq.x, cxy, cq.y, l, sp, mode,
+              kDelta, kMul, kAcc, k_slack));
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Write the tile: each valid row's n_here bytes, in 16-byte pieces when
+  // every row starts on a 16-byte boundary (N % 16 == 0), else bytewise.
+  if ((geo.n_cols & 15) == 0) {
+    for (int k = tid; k < kRows * kChunks; k += kThreads) {
+      const int r = k / kChunks, p = k % kChunks;
+      if (16 * p >= n_here || !row_valid(r)) continue;
+      const uint4 v = n_items > 0
+          ? *reinterpret_cast<const uint4*>(&s_flags[r][16 * p])
+          : make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(out + row_of(r) * geo.n_cols + c0 + 16 * p) =
+          v;
+    }
+  } else {
+    for (int k = tid; k < kRows * kCols; k += kThreads) {
+      const int r = k / kCols, c = k % kCols;
+      if (c >= n_here || !row_valid(r)) continue;
+      out[row_of(r) * geo.n_cols + c0 + c] =
+          n_items > 0 ? static_cast<int8_t>(s_flags[r][c]) : int8_t{0};
+    }
   }
 }
+
+using DenseKernel = void (*)(const float*, const float*, const float*,
+                             const float*, const float*, const int8_t*,
+                             int8_t*, Geometry, int, int, float);
+
+// The instance for (delta_prec, mul_prec, acc_prec), indexed
+// 9 * delta_prec + 3 * mul_prec + acc_prec.
+#define PRTU_DENSE_ROW(d, m)                                         \
+  prtu_dense_kernel<d, m, 0>, prtu_dense_kernel<d, m, 1>,            \
+      prtu_dense_kernel<d, m, 2>
+const DenseKernel kDenseKernels[27] = {
+    PRTU_DENSE_ROW(0, 0), PRTU_DENSE_ROW(0, 1), PRTU_DENSE_ROW(0, 2),
+    PRTU_DENSE_ROW(1, 0), PRTU_DENSE_ROW(1, 1), PRTU_DENSE_ROW(1, 2),
+    PRTU_DENSE_ROW(2, 0), PRTU_DENSE_ROW(2, 1), PRTU_DENSE_ROW(2, 2)};
+#undef PRTU_DENSE_ROW
 
 }  // namespace
 
 // Plain C entry point for ctypes. Pointers are device pointers of
-// contiguous tensors; `stream` is the caller's cudaStream_t. Returns the
-// cudaError_t of the launch (0 on success).
+// contiguous tensors; `width` is the number of mini-tiles in an image row
+// of the mask's row layout (rows row-major over the image); `stream` is
+// the caller's cudaStream_t. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int prtu_cat_mask_launch(
     const void* p_top, const void* p_bot, const void* mu, const void* conic,
     const void* lhs, const void* spiky, void* out, int m_rows, int n_cols,
-    int mode, int coord_prec, int delta_prec, int mul_prec, int acc_prec,
-    float k_slack, void* stream) {
+    int width, int mode, int coord_prec, int delta_prec, int mul_prec,
+    int acc_prec, float k_slack, void* stream) {
   if (m_rows == 0 || n_cols == 0) return 0;
-  const dim3 grid((n_cols + kThreads - 1) / kThreads,
-                  (m_rows + kRows - 1) / kRows);
-  prtu_dense_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (width <= 0 || delta_prec < 0 || delta_prec > 2 || mul_prec < 0 ||
+      mul_prec > 2 || acc_prec < 0 || acc_prec > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geometry geo;
+  geo.m_rows = m_rows;
+  geo.n_cols = n_cols;
+  geo.width = width;
+  geo.height = static_cast<int>((static_cast<long long>(m_rows) + width - 1)
+                                / width);
+  geo.regions_x = (width + kSide - 1) / kSide;
+  const long long regions = static_cast<long long>(geo.regions_x) *
+                            ((geo.height + kSide - 1) / kSide);
+  const long long col_blocks = (static_cast<long long>(n_cols) + kCols - 1)
+                               / kCols;
+  if (regions > 0x7fffffffLL || col_blocks > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const DenseKernel kernel =
+      kDenseKernels[9 * delta_prec + 3 * mul_prec + acc_prec];
+  const dim3 grid(static_cast<unsigned>(regions),
+                  static_cast<unsigned>(col_blocks));
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(p_top), static_cast<const float*>(p_bot),
       static_cast<const float*>(mu), static_cast<const float*>(conic),
       static_cast<const float*>(lhs), static_cast<const int8_t*>(spiky),
-      static_cast<int8_t*>(out), m_rows, n_cols, mode, coord_prec,
-      delta_prec, mul_prec, acc_prec, k_slack);
+      static_cast<int8_t*>(out), geo, mode, coord_prec, k_slack);
   return static_cast<int>(cudaGetLastError());
 }

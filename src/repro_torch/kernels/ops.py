@@ -43,11 +43,13 @@ def cat_mask_operands(proj: Projected, grid: TileGrid,
 def cat_mask_cuda(proj: Projected, grid: TileGrid, mode: SamplingMode,
                   prec: PrecisionScheme,
                   spiky_threshold: float = 3.0) -> torch.Tensor:
-    """(num_minitiles, N) bool CAT mask via the dense PRTU kernel."""
+    """(num_minitiles, N) bool CAT mask via the dense PRTU kernel (rows
+    are the grid's mini-tiles, image row-major)."""
     mask = prtu.prtu_cat_mask(
         *cat_mask_operands(proj, grid, spiky_threshold), mode=mode.value,
         coord_prec=prec.coord, delta_prec=prec.delta, mul_prec=prec.mul,
-        acc_prec=prec.acc, slack=prec.slack)
+        acc_prec=prec.acc, slack=prec.slack,
+        width=grid.width // grid.minitile)
     # The mask holds only 0 and 1: read it as bool without an (M, N) copy.
     return mask.view(torch.bool)
 

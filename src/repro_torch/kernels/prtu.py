@@ -16,6 +16,7 @@ quantizer of `core.precision`.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -30,7 +31,8 @@ MODE_CODES = {"uniform_dense": 0, "uniform_sparse": 1, "smooth_focused": 2,
               "spiky_focused": 3}
 PREC_CODES = {"fp32": 0, "fp16": 1, "fp8": 2}
 MINITILES = 16          # the kernel's mini-tiles per tile (4x4 of 4x4 px)
-DENSE_ROWS = 128        # mini-tile rows per block of csrc/prtu_dense.cu
+DENSE_SIDE = 8          # region side (mini-tiles) of a csrc/prtu_dense.cu block
+DENSE_COLS = 512        # Gaussian columns of a csrc/prtu_dense.cu block
 
 launches = 0            # K1 launches since the last reset to 0
 dense_launches = 0      # K4 launches since the last reset to 0
@@ -123,7 +125,8 @@ def prtu_cat_mask(p_top: torch.Tensor, p_bot: torch.Tensor, mu: torch.Tensor,
                   conic: torch.Tensor, lhs: torch.Tensor, spiky: torch.Tensor,
                   *, mode: str = "smooth_focused", coord_prec: str = "fp16",
                   delta_prec: str = "fp8", mul_prec: str = "fp8",
-                  acc_prec: str = "fp16", slack: float = 0.0) -> torch.Tensor:
+                  acc_prec: str = "fp16", slack: float = 0.0,
+                  width: Optional[int] = None) -> torch.Tensor:
     """(M, N) int8 CAT mask over every (mini-tile, Gaussian) pair.
 
     p_top/p_bot: (M, 2) float32 image-space leader coords of each
@@ -131,6 +134,12 @@ def prtu_cat_mask(p_top: torch.Tensor, p_bot: torch.Tensor, mu: torch.Tensor,
     with lhs = -inf on culled Gaussians (they never pass); spiky (N,) int8.
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream. The mask holds only 0 and 1.
+
+    width: mini-tiles per image row when the rows are an image's mini-tiles
+    in row-major order (`TileGrid.minitile_origins`); None reads the rows
+    as one band. The kernel checks the leaders against the layout and
+    takes its exact per-pair path where they do not fit it, so `width`
+    only decides the speed: the result is the same.
     """
     kw = dict(mode=mode, coord_prec=coord_prec, delta_prec=delta_prec,
               mul_prec=mul_prec, acc_prec=acc_prec, slack=slack)
@@ -147,17 +156,26 @@ def prtu_cat_mask(p_top: torch.Tensor, p_bot: torch.Tensor, mu: torch.Tensor,
     check("conic", conic, f32, (n, 3), dev)
     check("lhs", lhs, f32, (n,), dev)
     check("spiky", spiky, torch.int8, (n,), dev)
-    # Rows and columns index in int32 (the row grid in at most 65535
-    # blocks of DENSE_ROWS); output offsets are 64-bit in the kernel.
-    if m >= 2 ** 31 or n >= 2 ** 31 or -(-m // DENSE_ROWS) > 65535:
+    for name, x in (("p_top", p_top), ("p_bot", p_bot), ("mu", mu)):
+        check_aligned(name, x, 8)                  # read as float2
+    width = max(m, 1) if width is None else int(width)
+    if width < 1:
+        raise ValueError(f"width must be positive, got {width}")
+    # Rows and columns index in int32, and so do the grid's regions of
+    # DENSE_SIDE x DENSE_SIDE rows; its column blocks of DENSE_COLS are at
+    # most 65535. Output offsets are 64-bit in the kernel.
+    height = -(-m // width)
+    regions = -(-width // DENSE_SIDE) * -(-height // DENSE_SIDE)
+    if (m >= 2 ** 31 or n >= 2 ** 31 or regions >= 2 ** 31
+            or -(-n // DENSE_COLS) > 65535):
         raise ValueError(f"a {m}x{n} mask exceeds the kernel's grid")
     codes = _codes(mode, coord_prec, delta_prec, mul_prec, acc_prec)
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
     lib = _dense_lib()
     err = lib.prtu_cat_mask_launch(
         p_top.data_ptr(), p_bot.data_ptr(), mu.data_ptr(), conic.data_ptr(),
-        lhs.data_ptr(), spiky.data_ptr(), out.data_ptr(), m, n, *codes,
-        1.0 - slack, torch.cuda.current_stream(dev).cuda_stream)
+        lhs.data_ptr(), spiky.data_ptr(), out.data_ptr(), m, n, width,
+        *codes, 1.0 - slack, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"prtu_cat_mask launch failed: cudaError {err}")
     global dense_launches
@@ -214,7 +232,7 @@ def _dense_lib() -> ctypes.CDLL:
     fn = lib.prtu_cat_mask_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 7 + [ci] * 7 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * 7 + [ci] * 8 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
     return lib
 

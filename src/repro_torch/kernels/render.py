@@ -46,6 +46,7 @@ MINITILES = 16
 
 launches = 0            # K2 launches since the last reset to 0
 full_launches = 0       # K3 launches since the last reset to 0
+FULL_WALK = 1           # K3's walk over the set lanes (csrc/blend_full.cu)
 
 
 class FusedBlendOut(NamedTuple):
@@ -222,13 +223,15 @@ def blend_tiles(pix: torch.Tensor, feat: torch.Tensor, colors: torch.Tensor,
     check("colors", colors, f32, (t, k, 3), dev)
     check("valid", valid, i8, (t, k), dev)
     check("allow", allow, i8, (t, k, MINITILES), dev)
+    check_aligned("feat", feat, 16)               # copied in 16-byte pieces
+    check_aligned("allow", allow, 16)             # read as 16-byte rows
     rgb = torch.empty((t, p, 3), dtype=f32, device=dev)
     trans = torch.empty((t, p), dtype=f32, device=dev)
     lib = _full_lib()
     err = lib.blend_tiles_launch(
         pix.data_ptr(), feat.data_ptr(), colors.data_ptr(), valid.data_ptr(),
         allow.data_ptr(), rgb.data_ptr(), trans.data_ptr(), t, k, ALPHA_MIN,
-        ALPHA_MAX, torch.cuda.current_stream(dev).cuda_stream)
+        ALPHA_MAX, FULL_WALK, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"blend_tiles launch failed: cudaError {err}")
     global full_launches
@@ -241,7 +244,7 @@ def _full_lib() -> ctypes.CDLL:
     fn = lib.blend_tiles_launch
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 7 + [ci, ci, cf, cf, vp]
+        fn.argtypes = [vp] * 7 + [ci, ci, cf, cf, ci, vp]
         fn.restype = ctypes.c_int
     return lib
 

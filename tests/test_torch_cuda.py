@@ -27,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.precision import FULL_FP32, MIXED, PrecisionScheme
+from repro_torch.core.precision import (FULL_FP32, FULL_FP8, MIXED,
+                                        PrecisionScheme, _quant)
 from repro_torch.kernels import build, prtu, render
 
 T_TILES, K_ENTRIES = 8, 256
@@ -80,6 +81,53 @@ def dense_cat_operands(seed, m=512, n=700):
     return orig + 0.5, orig + 3.5, mu, conic[0], lhs, spiky
 
 
+def far_band_operands(seed, rows=2, n=192):
+    """K4's operands on a 1024-px-wide band of `rows` mini-tile rows (256
+    mini-tiles a row, image row-major) and n wide Gaussians (conic 1e-6,
+    lhs 5: every corner passes unless its weight is NaN or inf) whose
+    leader deltas straddle +-464 px: a third in x only (means inside the
+    band's rows, x anywhere from -100 to 1124), a third mostly in y
+    (means 430-470 px above or below the band, x near its middle), a
+    third in both; one in ten culled."""
+    rng = np.random.default_rng(seed)
+    width = 256
+    i = np.arange(rows * width)
+    orig = np.stack([(i % width) * 4, (i // width) * 4], -1).astype(
+        np.float32)
+    height = 4 * rows
+    side = rng.integers(0, 2, n) * 2 - 1                  # above or below
+    off = rng.uniform(430, 470, n)
+    far_y = np.where(side < 0, -off, height + off)
+    mu_x = rng.uniform(-100, 1124, n)
+    mu_y = rng.uniform(0, height, n)
+    kind = np.arange(n) % 3                               # x, y, both
+    mu_x = np.where(kind == 1, rng.uniform(460, 564, n), mu_x)
+    mu_y = np.where(kind == 0, mu_y, far_y)
+    mu = np.stack([mu_x, mu_y], -1).astype(np.float32)
+    conic = np.tile(np.array([1e-6, 0.0, 1e-6], np.float32), (n, 1))
+    lhs = np.full(n, 5.0, np.float32)
+    lhs[rng.random(n) < 0.1] = -np.inf
+    spiky = (rng.random(n) < 0.4).astype(np.int8)
+    return orig + 0.5, orig + 3.5, mu, conic, lhs, spiky
+
+
+def far_pair_masks(ops, coord_prec="fp32"):
+    """(both, one) (M, N) bool: pairs whose two leader x deltas, or two
+    leader y deltas, exceed 464 px in magnitude; pairs where exactly one
+    delta of an axis does (and no axis has both). Coordinates rounded to
+    `coord_prec` first, as Alg. 1 does."""
+    top, bot, mu = (torch.from_numpy(x) for x in ops[:3])
+    q = lambda x: _quant(x, coord_prec)  # noqa: E731
+    both = torch.zeros((top.shape[0], mu.shape[0]), dtype=torch.bool)
+    count = torch.zeros_like(both, dtype=torch.int32)
+    for a in (0, 1):
+        ft = ~((q(top[:, a])[:, None] - q(mu[:, a])[None]).abs() <= 464)
+        fb = ~((q(bot[:, a])[:, None] - q(mu[:, a])[None]).abs() <= 464)
+        both |= ft & fb
+        count += (ft ^ fb).to(torch.int32)
+    return both.numpy(), ((count > 0) & ~both).numpy()
+
+
 def prec_kw(p):
     return dict(coord_prec=p.coord, delta_prec=p.delta, mul_prec=p.mul,
                 acc_prec=p.acc, slack=p.slack)
@@ -102,6 +150,34 @@ def blend_operands(seed, t=T_TILES, k=K_ENTRIES):
     f32 = np.float32
     return (pix.astype(f32), feat.astype(f32), colors.astype(f32), valid,
             allow)
+
+
+BLEND_CASES = ["full", "sparse", "single_bit", "interleaved",
+               "all_invalid_tile", "ragged_k"]
+
+
+def blend_case_operands(case, seed, t=T_TILES, k=K_ENTRIES):
+    """`blend_operands` reshaped into one of BLEND_CASES: "full" as made;
+    "sparse" 5% of the mini-tile bits set; "single_bit" one bit an entry;
+    "interleaved" every slot valid or not at random (no prefix); an
+    "all_invalid_tile" (tile 1 has no valid slot); "ragged_k" K + 72
+    slots, not a multiple of K_BLK."""
+    if case == "ragged_k":
+        k += 72
+    ops = list(blend_operands(seed, t=t, k=k))
+    rng = np.random.default_rng(seed + 1000)
+    shape = ops[4].shape
+    if case == "sparse":
+        ops[4] = (rng.random(shape) < 0.05).astype(np.int8)
+    elif case == "single_bit":
+        ops[4] = np.zeros(shape, np.int8)
+        bit = rng.integers(0, shape[2], shape[:2])
+        np.put_along_axis(ops[4], bit[..., None], 1, axis=2)
+    elif case == "interleaved":
+        ops[3] = (rng.random(shape[:2]) < 0.5).astype(np.int8)
+    elif case == "all_invalid_tile":
+        ops[3][1] = 0
+    return tuple(ops)
 
 
 def assert_fused_equal(got, want):
@@ -171,6 +247,105 @@ def test_full_blend_kernel_matches_plain(cuda):
     assert render.full_launches == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BLEND_CASES)
+def test_full_blend_kernel_cases_match_plain(cuda, case):
+    """K3 on sparse and single-bit masks, invalid slots between valid
+    ones, a tile with no valid slot and a ragged K: rgb/trans within 1e-6
+    of the plain version on the card."""
+    ops = [torch.from_numpy(x).to(cuda)
+           for x in blend_case_operands(case, 14, t=32, k=320)]
+    before = render.full_launches
+    got = render.blend_tiles(*ops)
+    assert render.full_launches == before + 1
+    want = render.blend_tiles_plain(*ops)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+
+
+def dense_kernel_flips(ops, kw, cuda, width=None) -> tuple[int, int]:
+    """(flips, hits) of K4 (told `width`) against its plain version on the
+    card; counts one launch."""
+    dev = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in ops]
+    before = prtu.dense_launches
+    got = prtu.prtu_cat_mask(*dev, **kw, width=width)
+    assert prtu.dense_launches == before + 1
+    want = prtu.prtu_cat_mask_plain(*dev, **kw)
+    return int((got != want).sum()), int(want.sum())
+
+
+FAR_BAND_PRECS = {"fp32": FULL_FP32, "mixed": MIXED, "fp8": FULL_FP8,
+                  "fp8_delta": PrecisionScheme("fp32", "fp8", "fp32", "fp32")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(FAR_BAND_PRECS))
+@pytest.mark.parametrize("width", [256, None])
+def test_dense_cat_kernel_far_band(cuda, prec, width):
+    """K4 on a 1024-px-wide band of 16 mini-tile rows whose Gaussians
+    straddle +-464 px (FULL_FP8: coordinates above 464 are NaN), told the
+    band's width (its 8x8 regions on the lattice, the fp8 skip on) or not
+    (rows as one band): 0 flips against the plain version, and under a
+    fp8 delta no hit where both deltas of an axis pass 464."""
+    p = FAR_BAND_PRECS[prec]
+    ops = far_band_operands(22, rows=16, n=1500)
+    kw = dict(mode="uniform_dense", **prec_kw(p))
+    flips, hits = dense_kernel_flips(ops, kw, cuda, width)
+    assert flips == 0 and hits > 0
+    if p.delta == "fp8":
+        dev = [torch.from_numpy(x).to(cuda) for x in ops]
+        got = prtu.prtu_cat_mask(*dev, **kw, width=width).cpu().numpy()
+        both, _ = far_pair_masks(ops, p.coord)
+        assert not got[both].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "mixed"])
+def test_dense_cat_kernel_ragged_culled_shuffled(cuda, prec):
+    """K4 where its blocks do not tile the mask: a 64-px image (16
+    mini-tiles a row) cut to 200 rows (a part of a last row, regions cut
+    at the bottom), 1300 Gaussians (not a multiple of the 512-column block
+    or of 16) with runs of culled and NaN columns (whole blocks empty);
+    then the same rows shuffled (off the lattice: the exact path). 0
+    flips each."""
+    p = {"fp32": FULL_FP32, "mixed": MIXED}[prec]
+    ops = list(dense_cat_operands(15, m=200, n=1300))
+    ops[4] = ops[4].copy()
+    ops[4][0:530] = -np.inf                  # the first block, and more
+    ops[4][700:760] = np.nan
+    kw = dict(mode="smooth_focused", **prec_kw(p))
+    flips, hits = dense_kernel_flips(ops, kw, cuda, width=16)
+    assert flips == 0 and hits > 0
+    perm = np.random.default_rng(15).permutation(200)
+    shuffled = [ops[0][perm], ops[1][perm]] + ops[2:]
+    flips, hits = dense_kernel_flips(shuffled, kw, cuda, width=16)
+    assert flips == 0 and hits > 0
+
+
+@pytest.mark.cuda
+def test_dense_cat_kernel_every_precision_instance(cuda):
+    """Each of K4's 27 (delta, mul, acc) instances, coordinates in fp16,
+    fp32 and fp8 (fp16/fp8 deltas with fp16 products and sums take the
+    float16 path unless the coordinates are fp32), with and without slack,
+    every sampling mode in turn: 0 flips against the plain version on the
+    card."""
+    ops = dense_cat_operands(16, m=256, n=700)
+    precs = ["fp32", "fp16", "fp8"]
+    modes = ["uniform_dense", "uniform_sparse", "smooth_focused",
+             "spiky_focused"]
+    i = 0
+    for delta in precs:
+        for mul in precs:
+            for acc in precs:
+                for coord in ("fp16", "fp32", "fp8"):
+                    kw = dict(mode=modes[i % 4], coord_prec=coord,
+                              delta_prec=delta, mul_prec=mul, acc_prec=acc,
+                              slack=0.1 * (i % 2))
+                    i += 1
+                    flips, _ = dense_kernel_flips(ops, kw, cuda, width=16)
+                    assert flips == 0, kw
 
 
 @pytest.mark.cuda

@@ -54,7 +54,7 @@ from repro.kernels import render as jrender
 
 from repro_torch import convert
 from repro_torch.core import (FULL_FP32, FULL_FP8, MIXED, GridConfig,
-                              ProjectedScene, RasterConfig, Renderer,
+                              PrecisionScheme, ProjectedScene, RasterConfig, Renderer,
                               StreamConfig, TestConfig, measure_k_max)
 from repro_torch.core import cat as tcat
 from repro_torch.core import culling as tculling
@@ -64,8 +64,9 @@ from repro_torch.core import raster as traster
 from repro_torch.core.cat import SamplingMode as TMode
 from repro_torch.kernels import prtu, render
 
-from test_torch_cuda import (blend_operands, cat_operands,
-                             dense_cat_operands, prec_kw)
+from test_torch_cuda import (BLEND_CASES, blend_case_operands,
+                             blend_operands, cat_operands, dense_cat_operands,
+                             far_band_operands, far_pair_masks, prec_kw)
 
 SIZE = 64
 MODES = ["uniform_dense", "uniform_sparse", "smooth_focused",
@@ -199,6 +200,35 @@ def test_dense_cat_plain_matches_pallas_kernel(prec):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("prec", ["mixed", "fp32", "fp8", "fp8_delta"])
+def test_dense_cat_far_band_matches_pallas_kernel(prec):
+    """K4's operands on a 1024-px-wide band of leaders with Gaussians whose
+    deltas straddle +-464 px in x, in y and in both: the plain version
+    equals the reference's Pallas kernel, and the premise of K4's fp8
+    overflow skip holds. Under a fp8 delta no pair hits whose two x deltas,
+    or two y deltas, pass 464 (NaN in e4m3); with wide products
+    (fp8_delta) pairs where only one delta of an axis passes it do hit;
+    under FULL_FP32 pairs beyond 464 px hit."""
+    p = {"mixed": MIXED, "fp32": FULL_FP32, "fp8": FULL_FP8,
+         "fp8_delta": PrecisionScheme("fp32", "fp8", "fp32", "fp32")}[prec]
+    ops = far_band_operands(21)
+    kw = dict(mode="uniform_dense", **prec_kw(p))
+    m, n = ops[0].shape[0], ops[2].shape[0]
+    want = np.asarray(jprtu.prtu_cat_mask(*(jnp.asarray(x) for x in ops),
+                                          interpret=True, **kw))[:m, :n]
+    got = prtu.prtu_cat_mask(*(t(x) for x in ops), **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    both, one = far_pair_masks(ops, p.coord)
+    live = np.isfinite(ops[4])[None, :]
+    assert (both & live).any()
+    if p.delta == "fp8":
+        assert not got[both].any()
+    if prec == "fp8_delta":
+        assert (one & live).any() and got[one & live].any()
+    if prec == "fp32":
+        assert got[both & live].any()
+
+
 def test_entry_cat_default_precision_matches_reference():
     """K1's wrapper with every precision argument left at its default
     computes the reference's default mask (mul_prec "fp8")."""
@@ -288,8 +318,12 @@ def test_compact_and_gather_dense_match_reference(tgrid, grid64,
 # K3's plain version, the oracles
 # ---------------------------------------------------------------------------
 
-def test_full_blend_plain_matches_pallas_kernel():
-    ops = blend_operands(9, t=4, k=128)
+@pytest.mark.parametrize("case", BLEND_CASES)
+def test_full_blend_plain_matches_pallas_kernel(case):
+    """K3's plain version on the lists K3 must handle: full and sparse
+    masks, one bit an entry, invalid slots between valid ones, a tile with
+    no valid slot, and K not a multiple of K_BLK."""
+    ops = blend_case_operands(case, 9, t=4, k=128)
     want = jrender.blend_tiles(*(jnp.asarray(x) for x in ops),
                                interpret=True)
     got = render.blend_tiles(*(t(x) for x in ops))
