@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--passes-only]
+    python3 chip_smoke.py [--json PATH] [--passes-only | --offpath-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -29,8 +29,9 @@ Phases, in order:
      over their concatenation
   3b. K3, the full-sweep blend (csrc/blend_full.cu), on the same pass:
      rgb/trans within 1e-6 of its plain version and within 2e-4 of K2
-     (which stops only below T_EPS); ms/pass beside K2's. A blend's bound
-     counts the pixel-entry lanes it needs (set mini-tile bits only)
+     (which stops only below T_EPS); device ms/pass beside K2's, the lane
+     slots its walk issues against the lanes the data needs. A blend's
+     bound counts the pixel-entry lanes it needs (set mini-tile bits only)
   4. serve >= 3 requests: per-request wall time, spill passes, work
      counters and PSNR against the plain render; both kernels' launch
      counts grow by exactly the passes served; then the stage walls of
@@ -44,7 +45,8 @@ Phases, in order:
   6. the 1024² / 131072-Gaussian frame (k_max probed, one pass):
      a. K4, the dense CAT (csrc/prtu_dense.cu): the full 65536 × 131072
         mask equal to its plain version under FULL_FP32 and MIXED, no hit
-        where |Δ| > 464 under MIXED, ms per call against its bound;
+        where |Δ| > 464 under MIXED; under each, ms per call against its
+        bound and the pairs it evaluates against those that can hit;
      b. the frame through the stream path, the dense plan and
         `RenderEngine(dataflow="dense")` (counted): walls, CAT mask bytes,
         peak device memory (the dense frame under 24 GiB); then, stage by
@@ -55,24 +57,32 @@ Phases, in order:
      d. the unfused baseline blend of the stream frame through K3
         (`ops.blend_tiles_cuda`, counted) within 2e-4 of the fused frame,
         then K3 within 1e-6 of its plain version on the same operands,
-        with its ms and bound there (the kernels line reports this shape)
+        with its device ms and bound there (the kernels line reports this
+        shape)
   5. one {"kernels": [...]} line, the card line, and as the last line
      {"ok": true, "device": {...}}
 
 Exits non-zero without printing a result when CUDA is unavailable or any
 phase fails. `--json PATH` also writes every measurement to PATH.
 `--passes-only` runs phases 1 and 4c alone and prints their sums as its
-last line: a copy of this script placed at the root of another commit's
-tree (`git archive`) times that commit's K1 and K2 on the same passes, so
-one chip call can run parent, change, change, parent, each in its own
-process. K1 and K2's `ms` (phases 2, 3 and 4c) are device times from CUDA
-graph replays; K3's and K4's are CUDA-event times around back-to-back
-calls, which their milliseconds of device work dwarf the host time of.
+last line; `--offpath-only` runs phase 1, the 1024² setup, phase 6a and
+K3 on the 1024² frame's lists, and prints their times on the line before
+the card line and the contract's last line. A copy of this script placed
+at the root of another commit's tree (`git archive`) times that commit's
+kernels on the same operands, so one chip call can run parent, change,
+change, parent, each in its own process. K1, K2 and K3's `ms` are device
+times from CUDA graph replays; K4's are CUDA-event times around
+back-to-back calls, which its milliseconds of device work dwarf the host
+time of.
 
 Byte bounds count what the call's data needs: K1 reads every lhs and the
 features of valid entries only and writes every flag; K2 reads the
 entries of the K-blocks it runs, the pixel centres of the tiles that run
-at least one, and the carried state, and writes every output.
+at least one, and the carried state, and writes every output; K3 reads
+every slot's mask bytes, the features and colour of the entries with a
+set lane and the pixel centres, and writes every output; K4 writes every
+flag (its operands are a few MB). Operation bounds count the lanes or
+pairs the data needs.
 """
 from __future__ import annotations
 
@@ -466,29 +476,12 @@ def k3_against_plain(operands, label: str) -> dict:
     n_valid = int((valid != 0).sum())
     result["bound_ms"], result["bound_by"], lanes = k3_bound(operands)
     result["lanes"] = lanes
-    walks = {}
-    if hasattr(render, "FULL_WALK"):
-        chosen = render.FULL_WALK
-        for walk in (0, 1, 2):
-            render.FULL_WALK = walk
-            try:
-                g = render.blend_tiles(*operands)
-                e = max(float((a - w).abs().max()) for a, w in zip(g, want))
-                check(e <= 1e-6, f"K3 walk {walk} ({label}) differs by {e}")
-                walks[walk] = dict(max_abs_err=e, slots=k3_walk_slots(
-                    valid, allow, walk), ms=device_ms(
-                        lambda: render.blend_tiles(*operands), PASS_REPS))
-            finally:
-                render.FULL_WALK = chosen
-            log(f"[k3] {label}: walk {walk}: {walks[walk]['ms']:.4f} ms, "
-                f"{walks[walk]['slots']} lane slots issued, max |Δ| {e:.3g}")
-        result["walks"] = walks
-        result["lane_slots"] = walks[chosen]["slots"]
+    result["lane_slots"] = k3_lane_slots(valid, allow)
     log(f"[k3] {label}: max |Δ| rgb/trans vs plain {err:.3g}; "
         f"{result['ms']:.4f} ms/pass (plain {result['plain_ms']:.1f} ms), "
         f"bound {result['bound_ms']:.4f} ms by {result['bound_by']}; "
         f"{t * k} slots swept, {n_valid} valid, {lanes} pixel-entry lanes "
-        f"needed, {result.get('lane_slots')} lane slots issued")
+        f"needed, {result['lane_slots']} lane slots issued")
     return result
 
 
@@ -507,23 +500,12 @@ def k3_bound(operands) -> tuple[float, str, int]:
     return ms, by, lanes
 
 
-def k3_walk_slots(valid, allow, walk: int) -> int:
-    """Lane slots (32 per warp step) K3's walk issues on these masks: walk
-    0 steps once per entry either of a warp's two mini-tile bits is set
-    for, walk 1 max(len A, len B) times per 32 entries, walk 2 once per two
-    entries of a warp's mini-tile in each 128-entry chunk."""
+def k3_lane_slots(valid, allow) -> int:
+    """Lane slots K3's walk issues on these masks: 32 for each entry of a
+    tile and warp whose mini-tile pair {2w, 2w+1} has either bit set."""
     bits = (allow != 0) & (valid != 0)[:, :, None]            # (T, K, 16)
-    t, k, mt = bits.shape
-    pad = -k % render.K_BLK
-    bits = torch.cat([bits, bits.new_zeros((t, pad, mt))], 1)
-    if walk == 2:
-        per = bits.view(t, -1, render.K_BLK, mt).sum(2, dtype=torch.int64)
-        return int(((per + 1) // 2).sum()) * 32
-    grp = bits.view(t, -1, 32, mt // 2, 2)
-    if walk == 0:
-        return int(grp.any(4).sum(dtype=torch.int64)) * 32
-    per = grp.sum(2, dtype=torch.int64)                       # (T, G, 8, 2)
-    return int(per.max(3).values.sum()) * 32
+    pairs = bits.view(*bits.shape[:2], -1, 2).any(3)          # (T, K, 8)
+    return int(pairs.sum(dtype=torch.int64)) * 32
 
 
 def phase_k3(proj, grid, hout, k2: dict) -> dict:

@@ -2,8 +2,9 @@
 // kernels: prtu_entry.cu (K1, the survivor-stream CTU) and prtu_dense.cu
 // (K4, the dense-mask oracle). It is the CUDA form of `_alg1_hits` in
 // src/repro/kernels/prtu.py, cut into its steps (delta, separable term,
-// cross term, corner sum, decision) so that `hit` below and K1's hoisted
-// loop compose the same arithmetic in the same rounding order.
+// cross term, corner sum, decision) so that `hit` below and the two
+// kernels' hoisted loops compose the same arithmetic in the same rounding
+// order.
 //
 // Numerics: the result must equal the reference bit for bit, so every
 // step rounds once, in the order of the CTU datapath:
@@ -19,7 +20,8 @@
 //     and the non-saturating conversions round alike;
 //   * the two-value forms (`quant2` and the steps built on it) convert a
 //     pair in one instruction; each lane rounds exactly as the one-value
-//     form does;
+//     form does. `fp8_quant_h2` is quant2's fp8 rounding left as float16
+//     values (every e4m3 value is one), for prtu_dense.cu's float16 path;
 //   * every kernel including this header is built with -fmad=false: under
 //     FULL_FP32 nothing is quantized, and a contracted a*b+c would move
 //     near-tie comparisons lhs > E*(1-slack) by an ulp;
@@ -40,16 +42,32 @@ __device__ __forceinline__ float fp8_nan() {
   return __int_as_float(0x7fc00000);
 }
 
-// (lo, hi) rounded to e4m3 and widened back to float, saturating. In
-// `cvt.rn.satfinite.e4m3x2.f32 d, a, b` the first source lands in the upper
-// byte of d; `cvt.rn.f16x2.e4m3x2` keeps the byte order in the halves.
-__device__ __forceinline__ float2 fp8_satfinite2(float lo, float hi) {
+// (lo, hi) rounded to e4m3, saturating, as float16 values (every e4m3 value
+// is one). In `cvt.rn.satfinite.e4m3x2.f32 d, a, b` the first source lands
+// in the upper byte of d; `cvt.rn.f16x2.e4m3x2` keeps the byte order in the
+// halves.
+__device__ __forceinline__ __half2 fp8_satfinite_h2(float lo, float hi) {
   unsigned short pair;
   asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;" : "=h"(pair) : "f"(hi),
       "f"(lo));
   unsigned int halves;
   asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(halves) : "h"(pair));
-  return __half22float2(*reinterpret_cast<const __half2*>(&halves));
+  return *reinterpret_cast<const __half2*>(&halves);
+}
+
+// The same widened back to float.
+__device__ __forceinline__ float2 fp8_satfinite2(float lo, float hi) {
+  return __half22float2(fp8_satfinite_h2(lo, hi));
+}
+
+// quant2(lo, hi, 2) as float16 values: the e4m3 rounding, NaN wherever
+// !(|x| <= 464).
+__device__ __forceinline__ __half2 fp8_quant_h2(float lo, float hi) {
+  const __half2 q = fp8_satfinite_h2(lo, hi);
+  const __half nan = __ushort_as_half(0x7e00);
+  return __halves2half2(
+      fabsf(lo) <= kFp8Overflow ? __low2half(q) : nan,
+      fabsf(hi) <= kFp8Overflow ? __high2half(q) : nan);
 }
 
 __device__ __forceinline__ float2 quant2(float a, float b, int kind) {

@@ -7,15 +7,16 @@
 // no occupied-block bound and no work counters. It is the baseline the
 // fused kernel (blend_fused.cu) is measured against.
 //
-// What bounds it: operations on the lanes the data needs. A (pixel, entry)
-// lane whose mini-tile bit is off, or whose slot is invalid, has a = 0 and
-// leaves the pixel's colour and transmittance bit-identical, so only the
-// set lanes need their ~26 fp32 operations and one expf (at 1024x1024,
-// 18% of the T*256*K lanes). The design evaluates those lanes and reads
-// only the features they need:
-//   * one block per tile; a pixel's transmittance and colour stay in
-//     registers for the whole sweep, outputs indexed by the pixel's
-//     row-major index in the tile;
+// What bounds it: instructions on the lanes the data needs. A (pixel,
+// entry) lane whose mini-tile bit is off, or whose slot is invalid, has
+// a = 0 and leaves the pixel's colour and transmittance bit-identical, so
+// only the set lanes need their ~26 fp32 operations and one accurate expf
+// (at 1024x1024, 18% of the T*256*K lanes). The design evaluates those
+// lanes and reads only the features they need:
+//   * one 256-thread block per tile; warp w holds the 4x8 pixels of
+//     mini-tiles {2w, 2w+1} (lanes 0-15 and 16-31), a pixel's
+//     transmittance and colour stay in registers for the whole sweep, and
+//     outputs are indexed by the pixel's row-major index in the tile;
 //   * the list is staged through shared memory K_BLK = 128 entries at a
 //     time, masks first: a chunk's 16 allow bytes and valid byte per entry
 //     become one 16-bit mask (0 where the slot is invalid), and only the
@@ -25,14 +26,27 @@
 //     no bit set anywhere (__syncthreads_or) is not blended at all, so the
 //     empty tail of a compacted list costs a read of its masks. Valid
 //     entries need not form a prefix;
-//   * WALK (see below) decides how a warp visits the set lanes;
+//   * each warp ballots the chunk's masks for its two bits and walks, in
+//     order, the entries either bit is set for (blend_fused.cu's walk), a
+//     lane whose own bit is off folding a = 0. Measured on the H100 at
+//     1024x1024, this walk issues 4% more lane slots than the needed lanes
+//     (neighbouring mini-tiles' bits mostly coincide) and beat a walk in
+//     which each half-warp follows its own mini-tile's list (divergent, 6%
+//     slower) and one in which the two half-warps compute alpha for two
+//     entries of one mini-tile and both fold both (2.3x slower);
+//   * a step's instructions are cut where the result allows: the three
+//     staged arrays share one stride (one address a step), a group's set
+//     entries are walked as the leading bits of a bit-reversed ballot, and
+//     cxx and cyy are halved once at staging, which is exact;
 //   * each pixel blends strictly front to back with the operation order of
 //     core/raster.py's fold (w = T*a; rgb += w*col; T *= 1-a), not the TPU
 //     kernel's in-block cumprod + matmul, which lane lockstep forced there.
+// -Xptxas -v for sm_90a (printed by kernels/build.py at build time) gives
+// its registers, shared memory and spills.
 // Built without --use_fast_math and with -fmad=false, so expf is the
 // accurate one and no multiply-add is contracted: skipping a lane with
-// a = 0 changes no bit, and the kernel agrees with the plain PyTorch fold
-// on the card to an ulp or two.
+// a = 0 changes no bit, and the kernel equals the plain PyTorch fold on the
+// card to an ulp or two.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,11 +54,12 @@ namespace {
 
 constexpr int kPixels = 256;    // 16x16 tile
 constexpr int kBlk = 128;       // K_BLK: list entries staged per chunk
+constexpr int kGroups = kBlk / 32;  // ballot words per chunk
 
 struct Stage {                  // one staged chunk
-  float4 geo[kBlk];             // mean x, mean y, cxx, cxy
-  float4 rest[kBlk];            // cyy, opacity, red, green
-  float blue[kBlk];
+  float4 geo[kBlk];             // mean x, mean y, cxx / 2, cxy
+  float4 rest[kBlk];            // cyy / 2, opacity, red, green
+  float4 blue[kBlk];            // blue, unused
   uint16_t mask[kBlk];          // allow bits, 0 where the slot is invalid
 };
 
@@ -85,37 +100,7 @@ __device__ __forceinline__ uint32_t pack_allow(uint4 a) {
   return bits;
 }
 
-// The next set entry of a 128-bit chunk set (lo: entries 0-63, hi:
-// 64-127), removed from the set; -1 when it is empty.
-__device__ __forceinline__ int pop_next(unsigned long long& lo,
-                                        unsigned long long& hi) {
-  if (lo) {
-    const int k = __ffsll(static_cast<long long>(lo)) - 1;
-    lo &= lo - 1;
-    return k;
-  }
-  if (hi) {
-    const int k = 64 + __ffsll(static_cast<long long>(hi)) - 1;
-    hi &= hi - 1;
-    return k;
-  }
-  return -1;
-}
-
-// WALK, how a warp visits a chunk's set lanes:
-//   0  warp w holds mini-tiles {2w, 2w+1} (4x8 pixels) and walks, in
-//      order, every entry either of its two bits is set for (blend_fused.cu's
-//      walk): the union of the two lists, 32 lanes an entry;
-//   1  the same pixels, but each half-warp walks its own mini-tile's list:
-//      max(len A, len B) steps, each evaluating one entry per half;
-//   2  warp w holds mini-tile w (16 pixels, 512 threads a block) twice:
-//      its two half-warps compute alpha for two consecutive entries of the
-//      mini-tile's list at once, exchange it (__shfl_xor_sync(.., 16)),
-//      and both fold the two entries in order with identical state; the
-//      lower half writes the outputs.
-template <int kWalk>
-__global__ void __launch_bounds__(kWalk == 2 ? 2 * kPixels : kPixels)
-blend_full_kernel(
+__global__ void __launch_bounds__(kPixels) blend_full_kernel(
     const float* __restrict__ pix,      // (T, 256, 2) pixel centers
     const float* __restrict__ feat,     // (T, K, 8) mx my cxx cxy cyy op 0 0
     const float* __restrict__ colors,   // (T, K, 3)
@@ -130,18 +115,10 @@ blend_full_kernel(
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  int py_local, px_local;
-  if (kWalk == 2) {
-    // Mini-tile w = 4 (row) + column; lanes l and l ^ 16 share a pixel.
-    const int p = lane & 15;
-    py_local = 4 * (warp >> 2) + (p >> 2);
-    px_local = 4 * (warp & 3) + (p & 3);
-  } else {
-    // Pixel rows 4(w/2)..+3, columns 8(w%2)..+7; lanes 0-15 in mini-tile
-    // 2w, lanes 16-31 in 2w+1, each row-major within its 4x4.
-    py_local = 4 * (warp >> 1) + ((lane & 15) >> 2);
-    px_local = 8 * (warp & 1) + 4 * (lane >> 4) + (lane & 3);
-  }
+  // Warp w: pixel rows 4(w/2)..+3, columns 8(w%2)..+7; lanes 0-15 in
+  // mini-tile 2w, lanes 16-31 in 2w+1, each row-major within its 4x4.
+  const int py_local = 4 * (warp >> 1) + ((lane & 15) >> 2);
+  const int px_local = 8 * (warp & 1) + 4 * (lane >> 4) + (lane & 3);
   const long long tp = static_cast<long long>(t) * kPixels
                        + 16 * py_local + px_local;
   const long long row = static_cast<long long>(t) * k_len;
@@ -152,7 +129,8 @@ blend_full_kernel(
 
   // Thread kk < 128 stages entry kk of a chunk: its allow row and valid
   // byte into registers (two chunks ahead), then its packed mask and, if
-  // the mask is non-zero, its features and colour (one chunk ahead).
+  // the mask is non-zero, its features and colour (one chunk ahead), whose
+  // cxx and cyy it halves once they have landed.
   uint4 allow_next = make_uint4(0u, 0u, 0u, 0u);
   int8_t valid_next = 0;
   auto load_masks = [&](int chunk) {
@@ -180,36 +158,29 @@ blend_full_kernel(
         cp_async8(&s.rest[tid], feat + 8 * e + 4);
         cp_async4(&s.rest[tid].z, colors + 3 * e);
         cp_async4(&s.rest[tid].w, colors + 3 * e + 1);
-        cp_async4(&s.blue[tid], colors + 3 * e + 2);
+        cp_async4(&s.blue[tid].x, colors + 3 * e + 2);
       }
     }
     cp_async_commit();
     return need;
   };
-  auto alpha = [&](const Stage& s, int kk) {
-    const float4 f = s.geo[kk];
-    const float4 f1 = s.rest[kk];
-    const float d0 = px - f.x;
-    const float d1 = py - f.y;
-    const float e = 0.5f * (f.z * (d0 * d0) + f1.x * (d1 * d1))
-                    + (f.w * d0) * d1;
-    const float a = fminf(f1.y * expf(-e), alpha_max);
-    return a >= alpha_min ? a : 0.f;
-  };
-  auto fold = [&](const Stage& s, int kk, float a) {
-    const float4 f1 = s.rest[kk];
-    const float w = trans * a;
-    r = r + w * f1.z;
-    g = g + w * f1.w;
-    b = b + w * s.blue[kk];
-    trans = trans * (1.f - a);
+  // After cp.async.wait_all a thread sees its own copies: it halves the
+  // entry it staged before the barrier publishes the chunk. Halving is
+  // exact, so 0.5 (cxx d0^2 + cyy d1^2) = (cxx/2) d0^2 + (cyy/2) d1^2 bit
+  // for bit (a scaling by 2^-1 commutes with rounding).
+  auto land = [&](Stage& s, bool need) {
+    cp_async_wait_all();
+    if (need) {
+      s.geo[tid].z *= 0.5f;
+      s.rest[tid].x *= 0.5f;
+    }
   };
 
   const int n_chunks = (k_len + kBlk - 1) / kBlk;
   load_masks(0);
   bool need = stage_chunk(stage[0], 0);
   if (n_chunks > 1) load_masks(1);
-  cp_async_wait_all();
+  land(stage[0], need);
   int run = __syncthreads_or(need);  // chunk 0 has a set lane; staged
   for (int j = 0; j < n_chunks; ++j) {
     const Stage& cur = stage[j & 1];
@@ -221,71 +192,49 @@ blend_full_kernel(
       if (j + 2 < n_chunks) load_masks(j + 2);
     }
     if (run) {
-      if (kWalk == 0) {
 #pragma unroll 1
-        for (int gi = 0; gi < kBlk / 32; ++gi) {
-          const uint32_t m = cur.mask[32 * gi + lane];
-          const uint32_t wa = __ballot_sync(0xffffffffu,
-                                            (m >> (2 * warp)) & 1u);
-          const uint32_t wb = __ballot_sync(0xffffffffu,
-                                            (m >> (2 * warp + 1)) & 1u);
-          const uint32_t mine = lane < 16 ? wa : wb;
-          uint32_t todo = wa | wb;
-          while (todo) {
-            const int pos = __ffs(todo) - 1;
-            todo &= todo - 1;
-            const float a = alpha(cur, 32 * gi + pos);
-            fold(cur, 32 * gi + pos, (mine >> pos) & 1u ? a : 0.f);
-          }
-        }
-      } else if (kWalk == 1) {
-#pragma unroll 1
-        for (int gi = 0; gi < kBlk / 32; ++gi) {
-          const uint32_t m = cur.mask[32 * gi + lane];
-          const uint32_t wa = __ballot_sync(0xffffffffu,
-                                            (m >> (2 * warp)) & 1u);
-          const uint32_t wb = __ballot_sync(0xffffffffu,
-                                            (m >> (2 * warp + 1)) & 1u);
-          uint32_t mine = lane < 16 ? wa : wb;
-          const int steps = max(__popc(wa), __popc(wb));
-          for (int it = 0; it < steps; ++it) {
-            if (mine) {
-              const int kk = 32 * gi + __ffs(mine) - 1;
-              mine &= mine - 1;
-              fold(cur, kk, alpha(cur, kk));
-            }
-          }
-        }
-      } else {
-        unsigned long long lo = 0ull, hi = 0ull;
-#pragma unroll
-        for (int gi = 0; gi < kBlk / 32; ++gi) {
-          const unsigned long long w = __ballot_sync(
-              0xffffffffu, (cur.mask[32 * gi + lane] >> warp) & 1u);
-          if (gi < 2) lo |= w << (32 * gi);
-          else hi |= w << (32 * (gi - 2));
-        }
-        const bool upper = lane >= 16;
-        while (lo | hi) {
-          const int ka = pop_next(lo, hi);
-          const int kb = pop_next(lo, hi);
-          const int mine = upper ? kb : ka;
-          const float a = mine >= 0 ? alpha(cur, mine) : 0.f;
-          const float other = __shfl_xor_sync(0xffffffffu, a, 16);
-          fold(cur, ka, upper ? other : a);
-          if (kb >= 0) fold(cur, kb, upper ? a : other);
+      for (int gi = 0; gi < kGroups; ++gi) {
+        // The group's entries with either of the warp's two bits set, in
+        // order; `mine` holds the bits of this lane's mini-tile.
+        const uint32_t m = cur.mask[32 * gi + lane];
+        const uint32_t wa = __ballot_sync(0xffffffffu,
+                                          (m >> (2 * warp)) & 1u);
+        const uint32_t wb = __ballot_sync(0xffffffffu,
+                                          (m >> (2 * warp + 1)) & 1u);
+        const uint32_t mine = lane < 16 ? wa : wb;
+        const float4* geo = cur.geo + 32 * gi;
+        const float4* rest = cur.rest + 32 * gi;
+        const float4* blue = cur.blue + 32 * gi;
+        // Entry pos of the group is bit 31 - pos of `todo`, so the next one
+        // in order is its leading set bit.
+        uint32_t todo = __brev(wa | wb);
+        while (todo) {
+          const int pos = __clz(todo);
+          todo ^= 0x80000000u >> pos;
+          const bool on = (mine >> pos) & 1u;
+          const float4 f = geo[pos];
+          const float4 f1 = rest[pos];
+          const float d0 = px - f.x;
+          const float d1 = py - f.y;
+          const float e = (f.z * (d0 * d0) + f1.x * (d1 * d1))
+                          + (f.w * d0) * d1;
+          float a = fminf(f1.y * expf(-e), alpha_max);
+          a = (on && a >= alpha_min) ? a : 0.f;
+          const float w = trans * a;
+          r = r + w * f1.z;
+          g = g + w * f1.w;
+          b = b + w * blue[pos].x;
+          trans = trans * (1.f - a);
         }
       }
     }
-    cp_async_wait_all();
+    land(stage[(j + 1) & 1], need);
     run = __syncthreads_or(need);
   }
-  if (kWalk != 2 || lane < 16) {
-    rgb_out[3 * tp] = r;
-    rgb_out[3 * tp + 1] = g;
-    rgb_out[3 * tp + 2] = b;
-    trans_out[tp] = trans;
-  }
+  rgb_out[3 * tp] = r;
+  rgb_out[3 * tp + 1] = g;
+  rgb_out[3 * tp + 2] = b;
+  trans_out[tp] = trans;
 }
 
 }  // namespace
@@ -295,26 +244,13 @@ blend_full_kernel(
 extern "C" int blend_tiles_launch(
     const void* pix, const void* feat, const void* colors, const void* valid,
     const void* allow, void* rgb_out, void* trans_out, int n_tiles,
-    int k_len, float alpha_min, float alpha_max, int walk, void* stream) {
+    int k_len, float alpha_min, float alpha_max, void* stream) {
   if (n_tiles == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* p = static_cast<const float*>(pix);
-  const float* f = static_cast<const float*>(feat);
-  const float* c = static_cast<const float*>(colors);
-  const int8_t* v = static_cast<const int8_t*>(valid);
-  const int8_t* a = static_cast<const int8_t*>(allow);
-  float* o = static_cast<float*>(rgb_out);
-  float* tr = static_cast<float*>(trans_out);
-  if (walk == 0)
-    blend_full_kernel<0><<<n_tiles, kPixels, 0, s>>>(p, f, c, v, a, o, tr,
-                                                     k_len, alpha_min,
-                                                     alpha_max);
-  else if (walk == 1)
-    blend_full_kernel<1><<<n_tiles, kPixels, 0, s>>>(p, f, c, v, a, o, tr,
-                                                     k_len, alpha_min,
-                                                     alpha_max);
-  else
-    blend_full_kernel<2><<<n_tiles, 2 * kPixels, 0, s>>>(
-        p, f, c, v, a, o, tr, k_len, alpha_min, alpha_max);
+  blend_full_kernel<<<n_tiles, kPixels, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pix), static_cast<const float*>(feat),
+      static_cast<const float*>(colors), static_cast<const int8_t*>(valid),
+      static_cast<const int8_t*>(allow), static_cast<float*>(rgb_out),
+      static_cast<float*>(trans_out), k_len, alpha_min, alpha_max);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,47 +5,55 @@
 // of the frame it evaluates Alg. 1's four corner weights of g on m's pixel
 // rectangle and writes one int8 hit flag, into a row-major (M, N) mask.
 //
-// What bounds it: the bytes of the mask it writes. At 1024x1024 with 131072
-// Gaussians the mask is 8.6 GB (2.57 ms at 3.35 TB/s), and it must be
-// written whole; the pairs that can hit are far fewer than M * N. A pair
-// costs about 44 fp32 operations and, under MIXED, 16 paired roundings.
-// The design evaluates only the pairs that can hit and writes every byte
-// once, in 16-byte stores:
+// What bounds it: the bytes of the mask it writes, then the pairs it
+// must evaluate. At 1024x1024 with 131072 Gaussians the mask is 8.6 GB
+// (2.57 ms at 3.35 TB/s) and must be written whole, while the pairs that
+// can hit are a fifth of M * N under MIXED. The design evaluates only the
+// pairs that can hit, each with as few instructions as its rounding
+// allows, and writes every byte once, in 16-byte stores:
 //   * a block owns one region of kSide x kSide mini-tiles (kRows mask rows
 //     of an image of `width` mini-tiles a row) and kCols consecutive
 //     Gaussian columns, and stages that (kRows, kCols) tile of flags in
 //     shared memory: zeroed, filled by the pairs it evaluates, then
-//     written out row by row with 16-byte stores (a warp writes 512
-//     contiguous bytes of one mask row). No pass of memset runs before it;
+//     written out row by row with 16-byte streaming stores (a warp writes
+//     512 contiguous bytes of one mask row). No memset runs before it;
 //   * column compaction: a Gaussian whose lhs is not above -inf (culled, or
-//     NaN) never hits, so only the live columns enter the block's work
-//     list (ballot and a shared counter) and their zero flags come from
-//     the zeroed tile. A block with an empty list writes zeros straight
-//     from registers;
+//     NaN) never hits, so only the live columns enter the block's list
+//     (ballot and a shared counter), one thread each; their zero flags
+//     come from the zeroed tile, and a block with an empty list writes
+//     zeros straight from registers;
 //   * the fp8-overflow skip, only under a fp8 delta: a delta with
 //     !(|d| <= 464) rounds to NaN there (alg1.cuh, fault F1), and a pair
 //     whose two x deltas, or two y deltas, are NaN has four NaN corner
-//     weights and never hits. A column is dropped from the list when every
-//     distinct x of the region, or every distinct y, gives such a pair of
-//     deltas; the test is computed from those deltas themselves (fp32
-//     subtraction of the coordinate-quantized values), so NaN coordinates
-//     (FULL_FP8 above 464 px) are far as well. Under fp32 and fp16 deltas
-//     the skip does not exist: pairs beyond 464 px can hit there;
+//     weights and never hits. A column leaves the list when every distinct
+//     x of the region, or every distinct y, gives such a pair of deltas;
+//     the test is computed from those deltas themselves (fp32 subtraction
+//     of the coordinate-quantized values), so NaN coordinates (FULL_FP8
+//     above 464 px) are far as well. Under fp32 and fp16 deltas the skip
+//     does not exist: pairs beyond 464 px can hit there;
 //   * the separable half hoisted: the region's leaders lie on a lattice (x
 //     fixed down each column of the region, y along each row), so a column
-//     has kSide distinct (top, bottom) x deltas and their separable terms,
-//     computed once, and kSide distinct y pairs, computed once per region
-//     row; only the cross terms, the corner sums and the decision remain
-//     per pair. The lattice is checked, not assumed: the staged leaders
-//     are compared bit for bit, and off the lattice (or with a `width`
-//     that does not describe the rows) the block runs alg1::hit per pair,
-//     which is exact, and skips nothing but dead columns;
+//     has kSide distinct (top, bottom) x deltas and separable terms, held
+//     in registers, and kSide distinct y pairs, one per region row; only
+//     the cross terms, the corner sums and the decision remain per pair.
+//     The lattice is checked, not assumed: the staged leaders are compared
+//     bit for bit, and off the lattice (or with a `width` that does not
+//     describe the rows) the block runs alg1::hit per pair, which is
+//     exact, and skips nothing but dead columns;
+//   * float16 arithmetic where it is exact (region_hits_half): when the
+//     coordinates, deltas, products and sums all round to fp16 or fp8, as
+//     under MIXED, each step runs as one paired half-precision operation,
+//     and the decision lhs > E (1 - slack) becomes E < T for a float16
+//     threshold T per column, two corners a compare;
 //   * the delta, multiplier and adder precisions are template parameters
 //     (27 instances in one table, one launch site), so no per-pair rounding
 //     step branches; the coordinate precision is applied once per staged
 //     leader and once per column, at run time.
 // The TPU kernel's (128, 128) VMEM blocks and padding to block multiples do
 // not carry over: the grid covers the ragged edges and masks them.
+// -Xptxas -v for sm_90a (printed by kernels/build.py at build time): 80
+// registers, 34,828 bytes of static shared memory, no spills (the MIXED
+// instance and FULL_FP32's alike): six blocks fit an SM.
 //
 // Indexing: M * N reaches 8.6e9 at 1024x1024 with 131072 Gaussians, past
 // int32, so every output offset is computed in 64 bits (the wrapper checks
@@ -54,6 +62,7 @@
 // Numerics: Alg. 1 of alg1.cuh, one rounding per step, built with
 // -fmad=false, shared with the entry-stream kernel prtu_entry.cu: a dense
 // mask gathered at a compacted entry equals that kernel's bit.
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -142,74 +151,113 @@ __device__ __forceinline__ void region_hits(
   }
 }
 
-// region_hits when every operand of the per-pair steps is a float16 value:
-// deltas rounded to fp16 or fp8 (e4m3 values are float16 values), the
-// conic's cxy rounded to fp16 or fp8, and products and sums rounded to
-// fp16 (mul_prec = acc_prec = fp16, as under MIXED). Then each step's
-// fp32 operation followed by one rounding to fp16 equals the float16
-// operation on the card, bit for bit: a product of two float16 values is
-// exact in fp32, and a sum rounded first to fp32 and then to fp16 rounds
-// as the sum rounded once, since fp32 carries 24 >= 2 * 11 + 2 bits. So
-// the cross terms and corner sums run as paired half-precision products
-// and sums (__hmul2_rn keeps the product from contracting into the sum),
-// with no conversion per step; the hoisted half and the decision are
-// region_hits'.
-template <int kDelta, bool kUnit>
+// The float16 threshold of one column's decision. For k > 0 the fp32
+// product fl(E * k) never decreases as E grows, so the float16 weights E
+// that pass (lhs > fl(E * k)) are exactly those below the smallest one
+// that does not: E passes iff E < T (NaN never does). T is found among the
+// float16 values in order, -inf (index 0) to +inf (which never passes:
+// lhs > inf is false), by walking from the float16 nearest lhs / k: down
+// while the value below does not pass, up while this one does. -0 and +0
+// pass alike, so T is never +0 with -0 passing.
+__device__ __forceinline__ __half pass_threshold(float l, float k) {
+  constexpr int kNeg = 0x7c00;    // ordered index of -0; +0 is kNeg + 1
+  constexpr int kTop = 2 * kNeg + 1;  // +inf
+  auto value = [](int o) {
+    return __ushort_as_half(o <= kNeg
+        ? static_cast<unsigned short>(0x8000 | (kNeg - o))
+        : static_cast<unsigned short>(o - kNeg - 1));
+  };
+  auto passes = [&](int o) { return l > __half2float(value(o)) * k; };
+  const unsigned short b = __half_as_ushort(__float2half_rn(l / k));
+  int o = (b & 0x8000) ? kNeg - (b & 0x7fff) : b + kNeg + 1;
+  o = min(max(o, 0), kTop);
+  while (o > 0 && !passes(o - 1)) --o;
+  while (passes(o)) ++o;
+  return value(o);
+}
+
+// alg1::delta2's rounding of (a - mu, b - mu) at a fp16 (kDelta 1) or fp8
+// (kDelta 2) delta, as float16 values.
+template <int kDelta>
+__device__ __forceinline__ __half2 delta_h2(float a, float b, float mu) {
+  return kDelta == 2 ? alg1::fp8_quant_h2(a - mu, b - mu)
+                     : __floats2half2_rn(a - mu, b - mu);
+}
+
+// alg1::separable2 at fp16 products, q(q(0.5 q(d d)) c), on float16 d and
+// c: each product of two float16 values is exact in fp32, so one float16
+// product rounds as the fp32 product rounded to fp16.
+__device__ __forceinline__ __half2 separable_h2(__half2 d, __half2 c) {
+  const __half2 sq = __hmul2_rn(d, d);
+  return __hmul2_rn(__hmul2_rn(sq, __float2half2_rn(0.5f)), c);
+}
+
+// region_hits when every operand of Alg. 1's steps is a float16 value:
+// coordinates rounded to fp16 or fp8 (e4m3 values are float16 values),
+// deltas to fp16 or fp8, products and sums to fp16 (mul_prec = acc_prec =
+// fp16, as under MIXED). Then each step's fp32 operation followed by one
+// rounding to fp16 equals the float16 operation on the card, bit for bit:
+// a product of two float16 values is exact in fp32, and a sum rounded
+// first to fp32 and then to fp16 rounds as the sum rounded once, since
+// fp32 carries 24 >= 2 * 11 + 2 bits. So the deltas come out of the
+// conversion as float16, every product and sum is a paired half-precision
+// operation (__hmul2_rn keeps a product from contracting into a sum), and
+// the decision compares the corner weights with the column's threshold
+// (pass_threshold, k = 1 - slack > 0), two corners a compare.
+template <int kDelta>
 __device__ __forceinline__ void region_hits_half(
     const float4* __restrict__ lead, float mu_x, float mu_y, float cxx,
-    float cxy, float cyy, float l, bool dense, float k_slack,
+    float cxy, float cyy, __half2 thresh, bool dense,
     uint8_t* __restrict__ col) {
-  __half2 dx[kSide], sx[kSide];
+  const __half2 cx = __float2half2_rn(cxx), cy = __float2half2_rn(cyy);
+  const __half2 c = __float2half2_rn(cxy);
+  __half2 dx[kSide], sx[kSide];  // (top, bottom) x deltas and their terms
 #pragma unroll
   for (int j = 0; j < kSide; ++j) {
     const float4 a = lead[j];
-    const float2 d = alg1::delta2(a.x, a.z, mu_x, mu_x, kDelta);
-    const float2 sep = alg1::separable2(d, cxx, cxx, 1);
-    dx[j] = __floats2half2_rn(d.x, d.y);        // exact: float16 values
-    sx[j] = __floats2half2_rn(sep.x, sep.y);
+    dx[j] = delta_h2<kDelta>(a.x, a.z, mu_x);
+    sx[j] = separable_h2(dx[j], cx);
   }
-  const __half2 c = __float2half2_rn(cxy);
+  // A pass mask holds 0xffff in each half whose corner passes; with
+  // the other pair's halves swapped, the low half ORs the main diagonal
+  // (E0, E3), which always counts, and the high half the other corners
+  // (E1, E2), which count where the column samples densely.
+  const uint32_t counted = dense ? 0xffffffffu : 0x0000ffffu;
 #pragma unroll 1
   for (int i = 0; i < kSide; ++i) {
     const float4 a = lead[kSide * i];
-    const float2 dy = alg1::delta2(a.y, a.w, mu_y, mu_y, kDelta);
-    const float2 sy = alg1::separable2(dy, cyy, cyy, 1);
-    const __half2 dt = __float2half2_rn(dy.x), db = __float2half2_rn(dy.y);
-    const __half2 st = __float2half2_rn(sy.x), sb = __float2half2_rn(sy.y);
+    const __half2 dy = delta_h2<kDelta>(a.y, a.w, mu_y);
+    const __half2 sy = separable_h2(dy, cy);
+    const __half2 dt = __low2half2(dy), db = __high2half2(dy);
+    const __half2 st = __low2half2(sy), sb = __high2half2(sy);
 #pragma unroll
     for (int j = 0; j < kSide; ++j) {
       const __half2 t01 = __hmul2_rn(__hmul2_rn(dx[j], dt), c);
       const __half2 t23 = __hmul2_rn(__hmul2_rn(dx[j], db), c);
-      const float2 e01 = __half22float2(__hadd2_rn(__hadd2_rn(sx[j], st),
-                                                   t01));
-      const float2 e23 = __half22float2(__hadd2_rn(__hadd2_rn(sx[j], sb),
-                                                   t23));
-      const bool h0 = passes<kUnit>(l, e01.x, k_slack);
-      const bool h1 = passes<kUnit>(l, e01.y, k_slack);
-      const bool h2 = passes<kUnit>(l, e23.x, k_slack);
-      const bool h3 = passes<kUnit>(l, e23.y, k_slack);
-      col[(kSide * i + j) * kCols] =
-          static_cast<uint8_t>(h0 || h3 || (dense && (h1 || h2)));
+      const __half2 e01 = __hadd2_rn(__hadd2_rn(sx[j], st), t01);
+      const __half2 e23 = __hadd2_rn(__hadd2_rn(sx[j], sb), t23);
+      const uint32_t p01 = __hlt2_mask(e01, thresh);        // E0, E1
+      const uint32_t p23 = __hlt2_mask(e23, thresh);        // E2, E3
+      const uint32_t any = (p01 | __byte_perm(p23, 0, 0x1032)) & counted;
+      col[(kSide * i + j) * kCols] = static_cast<uint8_t>(min(any, 1u));
     }
   }
 }
 
 // One column over an on-lattice region: the float16 form where every
-// per-pair operand is a float16 value (coord_prec fp16 or fp8 for cxy),
-// and with or without the slack product.
+// per-pair operand is a float16 value (coord_prec fp16 or fp8 for cxy)
+// and k = 1 - slack > 0, else region_hits with or without the slack
+// product.
 template <int kDelta, int kMul, int kAcc>
 __device__ __forceinline__ void column_hits(
     const float4* __restrict__ lead, int coord_prec, float mu_x, float mu_y,
     float cxx, float cxy, float cyy, float l, bool dense, float k_slack,
     uint8_t* __restrict__ col) {
   constexpr bool kHalf = kMul == 1 && kAcc == 1 && kDelta != 0;
-  if (kHalf && coord_prec != 0) {
-    if (k_slack == 1.f)
-      region_hits_half<kDelta, true>(lead, mu_x, mu_y, cxx, cxy, cyy, l,
-                                     dense, k_slack, col);
-    else
-      region_hits_half<kDelta, false>(lead, mu_x, mu_y, cxx, cxy, cyy, l,
-                                      dense, k_slack, col);
+  if (kHalf && coord_prec != 0 && k_slack > 0.f) {
+    region_hits_half<kDelta>(lead, mu_x, mu_y, cxx, cxy, cyy,
+                             __half2half2(pass_threshold(l, k_slack)),
+                             dense, col);
   } else if (k_slack == 1.f) {
     region_hits<kDelta, kMul, kAcc, true>(lead, mu_x, mu_y, cxx, cxy, cyy,
                                           l, dense, k_slack, col);
@@ -287,7 +335,24 @@ __global__ void __launch_bounds__(kThreads) prtu_dense_kernel(
   }
   const bool lattice = __syncthreads_and(ok) != 0;
 
-  // Column compaction: live columns, less those the fp8 skip drops.
+  // Column compaction: live columns, less those the fp8 skip drops. The
+  // skip reads the region's distinct leader coordinates from registers.
+  constexpr bool kSkip = kDelta == 2;
+  float tx[kSide], bx[kSide], ty[kSide], by[kSide];
+  uint32_t valid_x = 0u, valid_y = 0u;  // region columns j, rows i inside
+  if (kSkip && lattice) {
+#pragma unroll
+    for (int k = 0; k < kSide; ++k) {
+      const float4 a = s_lead[k];
+      const float4 b = s_lead[kSide * k];
+      tx[k] = a.x;
+      bx[k] = a.z;
+      ty[k] = b.y;
+      by[k] = b.w;
+      valid_x |= static_cast<uint32_t>(row_valid(k)) << k;
+      valid_y |= static_cast<uint32_t>(row_valid(kSide * k)) << k;
+    }
+  }
 #pragma unroll
   for (int s = 0; s < kColsPerThread; ++s) {
     const int c = s * kThreads + tid;
@@ -295,20 +360,16 @@ __global__ void __launch_bounds__(kThreads) prtu_dense_kernel(
     if (c < n_here) {
       const long long g = c0 + c;
       keep = lhs[g] > __uint_as_float(0xff800000u);  // -inf, NaN never hit
-      if (kDelta == 2 && keep && lattice) {
+      if (kSkip && keep && lattice) {
         const float2 mg = reinterpret_cast<const float2*>(mu)[g];
         const float2 mq = alg1::quant2(mg.x, mg.y, coord_prec);
         bool far_x = true, far_y = true;
 #pragma unroll
         for (int k = 0; k < kSide; ++k) {
-          if (row_valid(k)) {
-            const float4 a = s_lead[k];
-            far_x = far_x && fp8_nan(a.x - mq.x) && fp8_nan(a.z - mq.x);
-          }
-          if (row_valid(kSide * k)) {
-            const float4 a = s_lead[kSide * k];
-            far_y = far_y && fp8_nan(a.y - mq.y) && fp8_nan(a.w - mq.y);
-          }
+          if ((valid_x >> k) & 1u)
+            far_x = far_x && fp8_nan(tx[k] - mq.x) && fp8_nan(bx[k] - mq.x);
+          if ((valid_y >> k) & 1u)
+            far_y = far_y && fp8_nan(ty[k] - mq.y) && fp8_nan(by[k] - mq.y);
         }
         keep = !(far_x || far_y);
       }
@@ -366,8 +427,10 @@ __global__ void __launch_bounds__(kThreads) prtu_dense_kernel(
       const uint4 v = n_items > 0
           ? *reinterpret_cast<const uint4*>(&s_flags[r][16 * p])
           : make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(out + row_of(r) * geo.n_cols + c0 + 16 * p) =
-          v;
+      __stcs(reinterpret_cast<int4*>(out + row_of(r) * geo.n_cols + c0 +
+                                     16 * p),
+             make_int4(static_cast<int>(v.x), static_cast<int>(v.y),
+                       static_cast<int>(v.z), static_cast<int>(v.w)));
     }
   } else {
     for (int k = tid; k < kRows * kCols; k += kThreads) {

@@ -46,7 +46,6 @@ MINITILES = 16
 
 launches = 0            # K2 launches since the last reset to 0
 full_launches = 0       # K3 launches since the last reset to 0
-FULL_WALK = 1           # K3's walk over the set lanes (csrc/blend_full.cu)
 
 
 class FusedBlendOut(NamedTuple):
@@ -231,7 +230,7 @@ def blend_tiles(pix: torch.Tensor, feat: torch.Tensor, colors: torch.Tensor,
     err = lib.blend_tiles_launch(
         pix.data_ptr(), feat.data_ptr(), colors.data_ptr(), valid.data_ptr(),
         allow.data_ptr(), rgb.data_ptr(), trans.data_ptr(), t, k, ALPHA_MIN,
-        ALPHA_MAX, FULL_WALK, torch.cuda.current_stream(dev).cuda_stream)
+        ALPHA_MAX, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"blend_tiles launch failed: cudaError {err}")
     global full_launches
@@ -244,7 +243,7 @@ def _full_lib() -> ctypes.CDLL:
     fn = lib.blend_tiles_launch
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 7 + [ci, ci, cf, cf, ci, vp]
+        fn.argtypes = [vp] * 7 + [ci, ci, cf, cf, vp]
         fn.restype = ctypes.c_int
     return lib
 
