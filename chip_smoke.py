@@ -839,6 +839,8 @@ def phase_k4(pt: dict) -> dict:
                   "K4 hits where every fp8 delta overflows")
         del got, want
         evaluated, needed = k4_pairs(operands, kw, width)
+        if not K4_TAKES_WIDTH:     # a K4 without regions evaluates them all
+            evaluated = m * n
         if name == "mixed":
             check(needed == n_live * m - result["far_pairs"],
                   "K4's pair counts disagree with the far-pair count")

@@ -35,9 +35,8 @@
 //     slower) and one in which the two half-warps compute alpha for two
 //     entries of one mini-tile and both fold both (2.3x slower);
 //   * a step's instructions are cut where the result allows: the three
-//     staged arrays share one stride (one address a step), a group's set
-//     entries are walked as the leading bits of a bit-reversed ballot, and
-//     cxx and cyy are halved once at staging, which is exact;
+//     staged arrays share one stride (one address a step), and cxx and
+//     cyy are halved once at staging, which is exact;
 //   * each pixel blends strictly front to back with the operation order of
 //     core/raster.py's fold (w = T*a; rgb += w*col; T *= 1-a), not the TPU
 //     kernel's in-block cumprod + matmul, which lane lockstep forced there.
@@ -202,18 +201,13 @@ __global__ void __launch_bounds__(kPixels) blend_full_kernel(
         const uint32_t wb = __ballot_sync(0xffffffffu,
                                           (m >> (2 * warp + 1)) & 1u);
         const uint32_t mine = lane < 16 ? wa : wb;
-        const float4* geo = cur.geo + 32 * gi;
-        const float4* rest = cur.rest + 32 * gi;
-        const float4* blue = cur.blue + 32 * gi;
-        // Entry pos of the group is bit 31 - pos of `todo`, so the next one
-        // in order is its leading set bit.
-        uint32_t todo = __brev(wa | wb);
+        uint32_t todo = wa | wb;
         while (todo) {
-          const int pos = __clz(todo);
-          todo ^= 0x80000000u >> pos;
-          const bool on = (mine >> pos) & 1u;
-          const float4 f = geo[pos];
-          const float4 f1 = rest[pos];
+          const int kk = 32 * gi + __ffs(todo) - 1;
+          const bool on = (mine >> (kk & 31)) & 1u;
+          todo &= todo - 1;
+          const float4 f = cur.geo[kk];
+          const float4 f1 = cur.rest[kk];
           const float d0 = px - f.x;
           const float d1 = py - f.y;
           const float e = (f.z * (d0 * d0) + f1.x * (d1 * d1))
@@ -223,7 +217,7 @@ __global__ void __launch_bounds__(kPixels) blend_full_kernel(
           const float w = trans * a;
           r = r + w * f1.z;
           g = g + w * f1.w;
-          b = b + w * blue[pos].x;
+          b = b + w * cur.blue[kk].x;
           trans = trans * (1.f - a);
         }
       }
