@@ -250,19 +250,22 @@ def test_full_blend_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", BLEND_CASES)
-def test_full_blend_kernel_cases_match_plain(cuda, case):
-    """K3 on sparse and single-bit masks, invalid slots between valid
-    ones, a tile with no valid slot and a ragged K: rgb/trans within 1e-6
-    of the plain version on the card."""
-    ops = [torch.from_numpy(x).to(cuda)
-           for x in blend_case_operands(case, 14, t=32, k=320)]
-    before = render.full_launches
-    got = render.blend_tiles(*ops)
-    assert render.full_launches == before + 1
-    want = render.blend_tiles_plain(*ops)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+def test_full_blend_kernel_cases_match_plain(cuda):
+    """K3 on each of BLEND_CASES (sparse and single-bit masks, invalid
+    slots between valid ones, a tile with no valid slot, a ragged K):
+    rgb/trans within 1e-6 of the plain version on the card, one launch
+    each. The cases share one test so this file keeps few tests: the
+    tier-1 run's file order (pytest-xdist, by test count) decides which
+    worker runs the slowest file."""
+    for case in BLEND_CASES:
+        ops = [torch.from_numpy(x).to(cuda)
+               for x in blend_case_operands(case, 14, t=32, k=320)]
+        before = render.full_launches
+        got = render.blend_tiles(*ops)
+        assert render.full_launches == before + 1, case
+        want = render.blend_tiles_plain(*ops)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-6, msg=case)
 
 
 def dense_kernel_flips(ops, kw, cuda, width=None) -> tuple[int, int]:
@@ -281,56 +284,48 @@ FAR_BAND_PRECS = {"fp32": FULL_FP32, "mixed": MIXED, "fp8": FULL_FP8,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("prec", list(FAR_BAND_PRECS))
-@pytest.mark.parametrize("width", [256, None])
-def test_dense_cat_kernel_far_band(cuda, prec, width):
-    """K4 on a 1024-px-wide band of 16 mini-tile rows whose Gaussians
-    straddle +-464 px (FULL_FP8: coordinates above 464 are NaN), told the
-    band's width (its 8x8 regions on the lattice, the fp8 skip on) or not
-    (rows as one band): 0 flips against the plain version, and under a
-    fp8 delta no hit where both deltas of an axis pass 464."""
-    p = FAR_BAND_PRECS[prec]
-    ops = far_band_operands(22, rows=16, n=1500)
-    kw = dict(mode="uniform_dense", **prec_kw(p))
-    flips, hits = dense_kernel_flips(ops, kw, cuda, width)
-    assert flips == 0 and hits > 0
-    if p.delta == "fp8":
-        dev = [torch.from_numpy(x).to(cuda) for x in ops]
-        got = prtu.prtu_cat_mask(*dev, **kw, width=width).cpu().numpy()
-        both, _ = far_pair_masks(ops, p.coord)
-        assert not got[both].any()
+def test_dense_cat_kernel_geometry_and_instances(cuda):
+    """K4 against its plain version on the card, 0 flips in each case (one
+    test for all, so this file keeps few tests; see above):
+    * a 1024-px-wide band of 16 mini-tile rows whose Gaussians straddle
+      +-464 px, under FULL_FP32, MIXED, FULL_FP8 (coordinates above 464
+      are NaN) and a fp8 delta with wide products, told the band's width
+      (8x8 regions on the lattice, the fp8 skip on) or not (one band);
+      under a fp8 delta no hit where both deltas of an axis pass 464;
+    * blocks that do not tile the mask: a 64-px image (16 mini-tiles a
+      row) cut to 200 rows (part of a last row, regions cut at the bottom),
+      1300 Gaussians (not a multiple of the 512-column block or of 16) with
+      runs of culled and NaN columns (whole blocks empty), under FULL_FP32
+      and MIXED; then the same rows shuffled (off the lattice: the exact
+      path);
+    * each of the 27 (delta, mul, acc) instances, coordinates in fp16,
+      fp32 and fp8 (fp16/fp8 deltas with fp16 products and sums take the
+      float16 path unless the coordinates are fp32 or 1 - slack <= 0),
+      slack 0, 0.15 and 1.5 and every sampling mode in turn."""
+    band = far_band_operands(22, rows=16, n=1500)
+    for name, p in FAR_BAND_PRECS.items():
+        kw = dict(mode="uniform_dense", **prec_kw(p))
+        for width in (256, None):
+            flips, hits = dense_kernel_flips(band, kw, cuda, width)
+            assert flips == 0 and hits > 0, (name, width)
+            if p.delta == "fp8":
+                dev = [torch.from_numpy(x).to(cuda) for x in band]
+                got = prtu.prtu_cat_mask(*dev, **kw, width=width)
+                both, _ = far_pair_masks(band, p.coord)
+                assert not got.cpu().numpy()[both].any(), (name, width)
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("prec", ["fp32", "mixed"])
-def test_dense_cat_kernel_ragged_culled_shuffled(cuda, prec):
-    """K4 where its blocks do not tile the mask: a 64-px image (16
-    mini-tiles a row) cut to 200 rows (a part of a last row, regions cut
-    at the bottom), 1300 Gaussians (not a multiple of the 512-column block
-    or of 16) with runs of culled and NaN columns (whole blocks empty);
-    then the same rows shuffled (off the lattice: the exact path). 0
-    flips each."""
-    p = {"fp32": FULL_FP32, "mixed": MIXED}[prec]
-    ops = list(dense_cat_operands(15, m=200, n=1300))
-    ops[4] = ops[4].copy()
-    ops[4][0:530] = -np.inf                  # the first block, and more
-    ops[4][700:760] = np.nan
-    kw = dict(mode="smooth_focused", **prec_kw(p))
-    flips, hits = dense_kernel_flips(ops, kw, cuda, width=16)
-    assert flips == 0 and hits > 0
+    ragged = list(dense_cat_operands(15, m=200, n=1300))
+    ragged[4] = ragged[4].copy()
+    ragged[4][0:530] = -np.inf               # the first block, and more
+    ragged[4][700:760] = np.nan
     perm = np.random.default_rng(15).permutation(200)
-    shuffled = [ops[0][perm], ops[1][perm]] + ops[2:]
-    flips, hits = dense_kernel_flips(shuffled, kw, cuda, width=16)
-    assert flips == 0 and hits > 0
+    shuffled = [ragged[0][perm], ragged[1][perm]] + ragged[2:]
+    for p in (FULL_FP32, MIXED):
+        kw = dict(mode="smooth_focused", **prec_kw(p))
+        for ops in (ragged, shuffled):
+            flips, hits = dense_kernel_flips(ops, kw, cuda, width=16)
+            assert flips == 0 and hits > 0, p
 
-
-@pytest.mark.cuda
-def test_dense_cat_kernel_every_precision_instance(cuda):
-    """Each of K4's 27 (delta, mul, acc) instances, coordinates in fp16,
-    fp32 and fp8 (fp16/fp8 deltas with fp16 products and sums take the
-    float16 path unless the coordinates are fp32 or 1 - slack <= 0),
-    slack 0, 0.15 and 1.5 and every sampling mode in turn: 0 flips
-    against the plain version on the card."""
     ops = dense_cat_operands(16, m=256, n=700)
     precs = ["fp32", "fp16", "fp8"]
     modes = ["uniform_dense", "uniform_sparse", "smooth_focused",
