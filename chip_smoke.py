@@ -32,16 +32,38 @@ Phases, in order:
      (which stops only below T_EPS); device ms/pass beside K2's, the lane
      slots its walk issues against the lanes the data needs. A blend's
      bound counts the pixel-entry lanes it needs (set mini-tile bits only)
-  4. serve >= 3 requests: per-request wall time, spill passes, work
-     counters and PSNR against the plain render; both kernels' launch
-     counts grow by exactly the passes served; then the stage walls of
-     one warm frame and the device's busy share under torch.profiler
+  4. serve 3 requests in the engine's batches (max_batch 2 at 1920×1088:
+     a batch of 2 and a batch of 1): per-request wall time, spill passes,
+     work counters and PSNR against the plain render; both kernels'
+     launch counts grow by exactly one a pass of each dispatch; then the
+     stage walls of one warm frame and the device's busy share under
+     torch.profiler
   4c. every pass of request 0's frame on the plan the engine settled on:
      K1 equal to its plain version under FULL_FP32 and MIXED, K2 against
      its plain version from the carried state, each kernel's device ms
      (CUDA graph replays: short kernels are host-bound under back-to-back
      wrapper calls) against its bound, the per-frame sums, and K1 on an
      all-empty pass
+  4d. requests 0 and 1 as one `render_batch` and each alone: K1 and K2
+     launched once per pass of the batch, each batched frame bit-equal
+     (image, alpha, every counter) to the request served alone and within
+     2e-4 of the plain render; the batch's wall against the single walls
+     and its device-busy ms against two single frames (torch.profiler);
+     then K1 and K2 on the two frames' pass 0 folded into 2 × 8160 tiles
+     against their plain versions, device ms against their bounds
+  4e. one request under an enabled `obs.Tracer`: the dispatch spans and
+     the reference's eager stage tree (render > preprocess,
+     stage1_compact, ctu x n, blend x n, finalize), the ctu and blend
+     deltas summing to the frame's counters; the JSONL and Chrome trace
+     written under build/trace/; each stage span's wall
+  4f. `open_loop_trace(16, seed=0)` at 1920×1088 through a `Scheduler`
+     with a 544×960 fallback, replayed at 2x the single-request service
+     rate with interactive deadlines of 1.5 single walls: every arrival
+     served or rejected (`AdmissionRejected`), every degraded frame
+     bit-equal to the direct 544×960 render of its pose, the futures'
+     served/degraded/rejected/deadline-miss counts equal to the
+     telemetry's; p50/p95/p99, frames/s and the perf model's FPS (a model
+     of the FLICKER ASIC, not of the card)
   6. the 1024² / 131072-Gaussian frame (k_max probed, one pass):
      a. K4, the dense CAT (csrc/prtu_dense.cu): the full 65536 × 131072
         mask equal to its plain version under FULL_FP32 and MIXED, no hit
@@ -111,10 +133,15 @@ from repro_torch.core.hierarchy import count_true  # noqa: E402
 from repro_torch.core.raster import entry_mask_from_dense, untile  # noqa: E402
 from repro_torch.core.precision import PrecisionScheme, _quant  # noqa: E402
 from repro_torch.core.raster import T_EPS, entry_alpha  # noqa: E402
+from repro_torch.core.camera import resize_camera  # noqa: E402
+from repro_torch.core.hierarchy import fold_frames  # noqa: E402
 from repro_torch.kernels import build, ops, prtu, render  # noqa: E402
-from repro_torch.serving import (HD_SCENE_KW, RenderEngine,  # noqa: E402
-                                 RenderRequest, hd1080_cameras,
-                                 hd1080_engine)
+from repro_torch import obs  # noqa: E402
+from repro_torch.serving import (HD_SCENE_KW, AdmissionRejected,  # noqa: E402
+                                 RenderEngine, RenderRequest, Scheduler,
+                                 Telemetry, hd1080_cameras, hd1080_engine,
+                                 open_loop_trace, replay_open_loop)
+from repro_torch.serving.workloads import arrival_camera  # noqa: E402
 
 N_REQUESTS = 3
 # Published peaks of one H100 SXM (data sheet, dense): HBM bandwidth and
@@ -529,53 +556,76 @@ def phase_k3(proj, grid, hout, k2: dict) -> dict:
 # Phase 4: serve
 # ---------------------------------------------------------------------------
 
+def serve_in_batches(engine, requests) -> list:
+    """Serve `requests` as the engine's batches (at most max_batch each);
+    one list of FrameResults per dispatch."""
+    step = engine.max_batch
+    return [engine.render_batch(requests[i:i + step])
+            for i in range(0, len(requests), step)]
+
+
+def plain_render(engine, name, cam):
+    """The all-"torch" plan's render of `cam` on the engine's scene (the
+    plain versions of K1 and K2 on the card)."""
+    plan = engine.plan_for(name, cam.height, cam.width)
+    plain = Renderer.from_plan(plan).replace(
+        test=TestConfig(backend="torch"), raster=RasterConfig())
+    out, _ = plain.render_with_stats(engine.scene(name),
+                                     cam.to(engine.device))
+    return out
+
+
 def phase_serve(engine, name) -> dict:
     cams = hd1080_cameras(N_REQUESTS)
     requests = [RenderRequest(name, c, request_id=i)
                 for i, c in enumerate(cams)]
     prtu.launches = render.launches = 0
     t0 = time.perf_counter()
-    results = engine.render_batch(requests)
+    dispatches = serve_in_batches(engine, requests)
     wall = time.perf_counter() - t0
     launches = {"prtu_entry_cat_mask": prtu.launches,
                 "blend_tiles_fused": render.launches}
-    passes = sum(r.passes_run for r in results)
-    rows = []
+    # One K1 and one K2 launch per pass of each dispatch, whatever its
+    # batch size.
+    passes = sum(d[0].passes_run for d in dispatches)
+    results = [r for d in dispatches for r in d]
+    rows, plain_images = [], {}
     for r, cam in zip(results, cams):
         c = {k: float(v) for k, v in r.counters.items()}
         check(r.image.shape == (cam.height, cam.width, 3), "frame shape")
         check(bool(torch.isfinite(r.image).all()), "non-finite pixels")
         check(not r.overflow, "a SPILL frame reported overflow")
-        plan = engine.plan_for(name, cam.height, cam.width)
-        plain = Renderer.from_plan(plan).replace(
-            test=TestConfig(backend="torch"), raster=RasterConfig())
-        ref, _ = plain.render_with_stats(engine.scene(name),
-                                         cam.to(engine.device))
+        ref = plain_render(engine, name, cam)
+        plain_images[r.request.request_id] = ref.image
         q = float(psnr(r.image, ref.image))
         err = float((r.image - ref.image).abs().max())
         check(err <= 2e-4, f"request {r.request.request_id}: frame differs "
               f"from the plain render by {err} (PSNR {q:.2f} dB)")
         row = dict(request=r.request.request_id, wall_s=r.render_s,
-                   passes_run=r.passes_run, spill_passes=c["spill_passes"],
+                   batch_size=r.batch_size, passes_run=r.passes_run,
+                   spill_passes=c["spill_passes"],
                    processed_per_pixel=c["processed_per_pixel"],
                    kblocks_processed=c["kblocks_processed"],
                    kblocks_total=c["kblocks_total"], psnr_db=q,
                    max_abs_err=err, counters=c)
         rows.append(row)
-        log(f"[serve] request {row['request']}: {r.render_s * 1e3:.1f} ms, "
+        log(f"[serve] request {row['request']}: batch of {r.batch_size}, "
+            f"{r.render_s * 1e3:.1f} ms the batch, "
             f"{int(c['spill_passes'])} of {r.passes_run} spill passes used, "
             f"processed/px {c['processed_per_pixel']:.2f}, K-blocks "
             f"{int(c['kblocks_processed'])}/{int(c['kblocks_total'])}, "
             f"PSNR vs plain {q:.2f} dB (max |Δ| {err:.2e})")
-    log(f"[serve] {N_REQUESTS} requests in {wall:.3f} s; launches "
-        f"{launches} for {passes} passes ({engine.spill_retries} spill "
-        "retries)")
+    log(f"[serve] {N_REQUESTS} requests in {len(dispatches)} dispatches "
+        f"(max_batch {engine.max_batch}), {wall:.3f} s; launches "
+        f"{launches} for {passes} passes of the dispatches "
+        f"({engine.spill_retries} spill retries)")
     for kname, n in launches.items():
         check(n == passes, f"{kname} launched {n} times for {passes} "
-              "passes served")
+              "dispatch passes")
         check(n > 0, f"{kname} never launched on the main path")
     return dict(requests=rows, wall_s=wall, launches=launches,
-                passes=passes)
+                passes=passes, dispatches=len(dispatches),
+                plain_images=plain_images)
 
 
 # ---------------------------------------------------------------------------
@@ -710,6 +760,294 @@ def phase_passes(plan, scene, cam) -> dict:
         f"(bound {sums['k2_bound_ms']:.3f}); K1 on an all-empty pass "
         f"{empty['ms']:.4f} ms (bound {empty['bound_ms']:.4f})")
     return dict(rows=rows, sums=sums, empty_k1=empty, passes=len(rows))
+
+
+# ---------------------------------------------------------------------------
+# Phases 4d-4f: the batched serving path, its spans, the scheduler
+# ---------------------------------------------------------------------------
+
+def reset_launches() -> None:
+    prtu.launches = render.launches = 0
+
+
+def launches_now() -> dict:
+    return {"prtu_entry_cat_mask": prtu.launches,
+            "blend_tiles_fused": render.launches}
+
+
+def check_launches(label: str, passes: int) -> dict:
+    """K1 and K2 each launched once per pass of the dispatches read since
+    the last `reset_launches`."""
+    launches = launches_now()
+    for kname, n in launches.items():
+        check(n == passes, f"{label}: {kname} launched {n} times for "
+              f"{passes} dispatch passes")
+        check(n > 0, f"{label}: {kname} never launched")
+    return launches
+
+
+def same_frame(a, b) -> bool:
+    """Image, alpha and every counter bit for bit."""
+    return (torch.equal(a.image, b.image) and torch.equal(a.alpha, b.alpha)
+            and a.counters.keys() == b.counters.keys()
+            and all(torch.equal(a.counters[k], b.counters[k])
+                    for k in a.counters))
+
+
+def device_busy_ms(fn) -> float:
+    """Device-busy ms of `fn` under torch.profiler (device-side events)."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def phase_batch(engine, name, plain_images) -> dict:
+    """Requests 0 and 1 as one dispatch and each alone: one K1 and one K2
+    launch per pass of the batch, each batched frame equal to its single
+    render bit for bit and within 2e-4 of the plain render; walls and
+    device-busy time of the batch against two single frames."""
+    cams = hd1080_cameras(N_REQUESTS)[:2]
+    reqs = [RenderRequest(name, c, request_id=i) for i, c in enumerate(cams)]
+    check(engine.max_batch >= 2, f"max_batch {engine.max_batch} < 2")
+    reset_launches()
+    pair = engine.render_batch(reqs)
+    launches = check_launches("batch", pair[0].passes_run)
+    check(all(r.batch_size == 2 and r.bucket_size == 2 for r in pair),
+          "the two requests were not served as one batch of 2")
+    singles = [engine.render_batch([r])[0] for r in reqs]
+    rows = []
+    for r, s in zip(pair, singles):
+        i = r.request.request_id
+        check(same_frame(r, s), f"batched request {i} differs from the "
+              "same request served alone")
+        err = float((r.image - plain_images[i]).abs().max())
+        check(err <= 2e-4, f"batched request {i} differs from the plain "
+              f"render by {err}")
+        rows.append(dict(request=i, max_abs_err=err))
+    # Warm walls: the batch and the singles again, twice each, in turns.
+    walls = {"batch_s": [], "single_s": []}
+    for _ in range(2):
+        walls["batch_s"].append(engine.render_batch(reqs)[0].render_s)
+        walls["single_s"].append(
+            [engine.render_batch([r])[0].render_s for r in reqs])
+    busy_batch = device_busy_ms(lambda: engine.render_batch(reqs))
+    busy_singles = device_busy_ms(
+        lambda: [engine.render_batch([r]) for r in reqs])
+    single_wall = sum(sum(w) for w in walls["single_s"]) / 4
+    kernels = batch_pass_kernels(engine, name, cams)
+    log(f"[batch] 2 x 1920x1088 in one dispatch: launches {launches} for "
+        f"{pair[0].passes_run} passes; both frames bit-equal to the single "
+        f"renders, max |Δ| vs plain {max(x['max_abs_err'] for x in rows):.2e}")
+    log(f"[batch] walls: batch of 2 {walls['batch_s']} s, singles "
+        f"{walls['single_s']} s; device busy: batch {busy_batch:.3f} ms, "
+        f"two singles {busy_singles:.3f} ms")
+    return dict(launches=launches, passes=pair[0].passes_run, rows=rows,
+                walls=walls, single_wall_s=single_wall, kernels=kernels,
+                device_busy_batch_ms=busy_batch,
+                device_busy_two_singles_ms=busy_singles)
+
+
+def batch_pass_kernels(engine, name, cams) -> dict:
+    """K1 and K2 on pass 0 of the two frames folded into 2 × 8160 tiles,
+    the operands the batch's first launches get: each against its plain
+    version (K1 0 flips under MIXED, K2 as in phase 3) and timed against
+    its bound."""
+    plan = engine.plan_for(name, cams[0].height, cams[0].width)
+    pss = [plan.preprocess(engine.scene(name), c.to(engine.device))
+           for c in cams]
+    tss = [plan.stage1_compact(ps)[0] for ps in pss]
+    grid = pss[0].grid
+    fold = fold_frames([ps.proj for ps in pss], grid)
+    ids, valid = fold.ids([t.lists for t in tss]), fold.cat(
+        [t.valid for t in tss])
+    kw = prec_kw(MIXED)
+    cat_ops = ops.entry_cat_operands(fold.proj, grid, ids, valid,
+                                     tile_origins=fold.tile_origins)
+    flips = int((prtu.prtu_entry_cat_mask(*cat_ops, **kw)
+                 != prtu.prtu_entry_cat_mask_plain(*cat_ops, **kw)).sum())
+    check(flips == 0, f"K1 on the folded pass: {flips} flips")
+    houts = plan._ctu_frames(pss, fold, tss)
+    operands = ops.gather_tile_features(
+        fold.proj, grid, ids, valid,
+        fold.cat([h.entry_mini_mask for h in houts]),
+        tile_origins=fold.tile_origins)
+    pix = operands[0]
+    kb = render.kblock_bound_of(operands[3])
+    t, p = pix.shape[:2]
+    init = (torch.ones((t, p), device=pix.device),
+            torch.zeros((t, p, 3), device=pix.device),
+            torch.zeros((t, p), device=pix.device),
+            torch.zeros((t, p), device=pix.device))
+    got = render.blend_tiles_fused(*operands, kblock_bound=kb, init=init)
+    want = render.blend_tiles_fused_plain(*operands, kb, *init)
+    err = compare_fused(got, want, operands, "folded pass 0")
+    k1 = {"ms": device_ms(lambda: prtu.prtu_entry_cat_mask(*cat_ops, **kw),
+                          PASS_REPS), "flips": flips, "tiles": t}
+    k2 = {"ms": device_ms(lambda: render.blend_tiles_fused(
+        *operands, kblock_bound=kb, init=init), PASS_REPS),
+        "max_abs_err": err}
+    k1["bound_ms"], k1["bound_by"] = k1_bound(cat_ops)
+    k2["bound_ms"], k2["bound_by"], _ = k2_bound(operands, kb, init, got)
+    log(f"[batch] folded pass 0 ({t} tiles): K1 {k1['ms']:.4f} ms (bound "
+        f"{k1['bound_ms']:.4f}, 0 flips vs plain), K2 {k2['ms']:.4f} ms "
+        f"(bound {k2['bound_ms']:.4f}, max |Δ| vs plain {err:.2e})")
+    return {"k1": k1, "k2": k2}
+
+
+def phase_trace(engine, name) -> dict:
+    """One request under an enabled Tracer: the reference's eager tree
+    under the engine's dispatch spans, the ctu and blend deltas summing to
+    the frame's counters, JSONL and Chrome trace files under build/."""
+    cam = hd1080_cameras(N_REQUESTS)[0]
+    req = RenderRequest(name, cam, request_id=0)
+    reset_launches()
+    with obs.use_tracer(obs.Tracer()) as tracer:
+        r, = engine.render_batch([req])
+    launches = check_launches("trace", r.passes_run)
+    check(len(tracer.roots) == 1, f"{len(tracer.roots)} root spans")
+    root, = tracer.roots
+    n = engine.plan_for(name, cam.height, cam.width).n_passes
+    check(root.name == "engine.render_batch"
+          and [c.name for c in root.children] == ["jit_render"]
+          and [c.name for c in root.children[0].children] == ["render"],
+          "dispatch spans differ from engine.render_batch > jit_render > "
+          "render")
+    frame = root.children[0].children[0]
+    names = [c.name for c in frame.children]
+    want = (["preprocess", "stage1_compact"] + ["ctu"] * n + ["blend"] * n
+            + ["finalize"])
+    check(names == want, f"span tree {names} != the reference's {want}")
+    for kind in ("ctu", "blend"):
+        check([s.attrs["pass"] for s in frame.find(kind)] == list(range(n)),
+              f"{kind} span passes out of order")
+    c = {k: float(v) for k, v in r.counters.items()}
+    pixels = cam.height * cam.width
+    sums = dict(
+        vru_pairs=sum(s.attrs["vru_pairs"] for s in frame.find("ctu")),
+        ctu_pairs=sum(s.attrs["ctu_pairs"] for s in frame.find("ctu")),
+        processed=sum(s.attrs["processed_delta"]
+                      for s in frame.find("blend")),
+        blended=sum(s.attrs["blended_delta"] for s in frame.find("blend")),
+        entries_alive=sum(s.attrs["entries_alive"]
+                          for s in frame.find("blend")))
+    pairs = (("vru_pairs", sums["vru_pairs"], c["vru_pairs"]),
+             ("ctu_pairs", sums["ctu_pairs"], c["ctu_pairs"]),
+             ("processed", sums["processed"] / pixels,
+              c["processed_per_pixel"]),
+             ("blended", sums["blended"] / pixels, c["blended_per_pixel"]),
+             ("entries_alive", sums["entries_alive"], c["ctu_stream_len"]))
+    for key, got, want_v in pairs:
+        check(abs(got - want_v) <= 1e-6 * max(abs(want_v), 1.0),
+              f"span deltas of {key} sum to {got}, the frame has {want_v}")
+    out_dir = os.path.join(ROOT, "build", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    n_jsonl = obs.write_jsonl(tracer, os.path.join(out_dir,
+                                                   "hd1080_spans.jsonl"))
+    n_chrome = obs.write_chrome_trace(
+        tracer, os.path.join(out_dir, "hd1080_trace.json"))
+    walls = {}
+    for s in frame.children:
+        walls.setdefault(s.name, []).append(s.wall_s * 1e3)
+    stage_ms = {k: sum(v) for k, v in walls.items()}
+    log(f"[trace] {len(names)} stage spans under render ({n} passes), "
+        f"ctu/blend deltas sum to the frame's counters; {n_jsonl} spans to "
+        f"build/trace/hd1080_spans.jsonl, {n_chrome} events to "
+        "build/trace/hd1080_trace.json; launches " + str(launches))
+    log("[trace] stage span walls, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_ms.items()) + "; ctu per pass "
+        + str([round(s.wall_s * 1e3, 3) for s in frame.find("ctu")])
+        + ", blend per pass "
+        + str([round(s.wall_s * 1e3, 3) for s in frame.find("blend")]))
+    return dict(launches=launches, spans=len(tracer.spans()),
+                stage_ms=stage_ms, span_sums=sums,
+                render_wall_ms=frame.wall_s * 1e3)
+
+
+FALLBACK = (544, 960)
+
+
+def phase_scheduler(engine, name, single_wall_s: float) -> dict:
+    """The open-loop trace through a Scheduler with a 544×960 fallback, at
+    2x the single-request service rate and deadlines of 1.5 single walls:
+    every arrival served or rejected, every degraded frame equal to the
+    direct 544×960 render of its pose, the futures' counts equal to the
+    telemetry's."""
+    engine.telemetry = Telemetry(registry=obs.MetricsRegistry())
+    sched = Scheduler(engine)
+    sched.register_fallback(1088, 1920, *FALLBACK)
+    deadline = 1.5 * single_wall_s
+    rate = 2.0 / single_wall_s
+    trace = open_loop_trace(16, seed=0, scenes=(name,),
+                            resolutions=((1088, 1920),),
+                            interactive_frac=0.75,
+                            interactive_deadline_s=deadline)
+    dispatch_passes = []
+    serve = engine.render_batch
+
+    def counted(requests):
+        results = serve(requests)
+        dispatch_passes.append(results[0].passes_run)
+        return results
+    engine.render_batch = counted
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        out = replay_open_loop(sched, trace, rate_rps=rate)
+        wall = time.perf_counter() - t0
+    finally:
+        engine.render_batch = serve
+    launches = check_launches("scheduler", sum(dispatch_passes))
+    # The replay's own window, before the checks below render more.
+    snap = engine.telemetry.snapshot()
+    served, rejected, degraded, missed = [], 0, [], 0
+    for a, fut in out:
+        check(fut.done(), "an arrival was neither served nor rejected")
+        exc = fut.exception()
+        if exc is not None:
+            check(isinstance(exc, AdmissionRejected),
+                  f"arrival failed with {exc!r}")
+            rejected += 1
+            continue
+        res = fut.result()
+        served.append(res)
+        missed += res.deadline_missed
+        if res.degraded:
+            check(res.image.shape == (*FALLBACK, 3), "degraded frame shape")
+            low = resize_camera(arrival_camera(a, engine.device),
+                                width=FALLBACK[1], height=FALLBACK[0])
+            direct, = serve([RenderRequest(name, low)])
+            check(torch.equal(res.image, direct.image),
+                  "a degraded frame differs from the direct 544x960 render")
+            degraded.append(res)
+    tele = engine.telemetry
+    counts = dict(arrivals=len(trace), served=len(served),
+                  rejected=rejected, degraded=len(degraded),
+                  deadline_misses=missed)
+    check(len(served) + rejected == len(trace), "arrivals lost")
+    check((tele.total_requests, tele.total_rejected, tele.total_degraded,
+           tele.total_deadline_misses) == (len(served), rejected,
+                                           len(degraded), missed)
+          and sched.degraded == len(degraded) and sched.rejected == rejected,
+          f"futures {counts} disagree with telemetry "
+          f"({tele.total_requests}, {tele.total_rejected}, "
+          f"{tele.total_degraded}, {tele.total_deadline_misses})")
+    log(f"[scheduler] 16 arrivals at {rate:.3f} req/s (2x the single "
+        f"wall's rate), interactive deadline {deadline * 1e3:.1f} ms: "
+        f"{counts}; {len(dispatch_passes)} dispatches, replay wall "
+        f"{wall:.3f} s; launches {launches}")
+    log(f"[scheduler] telemetry: p50 {snap['p50_ms']:.1f} / p95 "
+        f"{snap['p95_ms']:.1f} / p99 {snap['p99_ms']:.1f} ms per batch, "
+        f"{snap['fps']:.2f} frames/s on the card; tiers "
+        f"{snap['tiers']}; perf model (the FLICKER ASIC, not the card): "
+        f"{snap['modeled_fps']:.0f} fps")
+    return dict(counts=counts, launches=launches,
+                dispatches=len(dispatch_passes), replay_wall_s=wall,
+                deadline_s=deadline, rate_rps=rate,
+                snapshot={k: v for k, v in snap.items() if k != "counters"},
+                modeled_asic_fps=snap["modeled_fps"])
 
 
 # ---------------------------------------------------------------------------
@@ -1083,10 +1421,18 @@ def main() -> int:
                                        houts[0], summary["k2"])
     del houts, streams, ps
     summary["serve"] = phase_serve(engine, name)
+    plain_images = summary["serve"].pop("plain_images")
     summary["breakdown"] = phase_breakdown(engine, name)
     plan = engine.plan_for(name, 1088, 1920)
     summary["passes"] = timed_phase(
         "passes", phase_passes, plan, engine.scene(name), cam)
+    summary["batch"] = timed_phase("batch", phase_batch, engine, name,
+                                   plain_images)
+    del plain_images
+    summary["trace"] = timed_phase("trace", phase_trace, engine, name)
+    summary["scheduler"] = timed_phase(
+        "scheduler", phase_scheduler, engine, name,
+        summary["batch"]["single_wall_s"])
     del engine, plan
 
     pt = timed_phase("1024 setup", p1024_setup)

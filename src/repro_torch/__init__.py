@@ -8,7 +8,9 @@ Layout mirrors the JAX reference package module for module:
                the staged RenderPlan (stream and dense dataflows, the AABB
                and OBB baselines), the legacy RenderConfig shim
     kernels/   CUDA kernels (csrc/), their wrappers and plain versions
-    serving/   RenderEngine and the 1080p workload
+    obs/       span tracing, the metrics registry and exporters
+    serving/   RenderEngine (batched), telemetry, the deadline scheduler
+               and the 1080p workload
     convert    numpy -> port types, for parity tests
 """
 from repro_torch.core import (FLICKER_CONFIG, GSCORE_CONFIG, VANILLA_CONFIG,

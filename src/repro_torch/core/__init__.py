@@ -3,7 +3,7 @@ dense-mask oracle and the AABB/OBB baselines."""
 from repro_torch.core.gaussians import (ALPHA_MIN, GaussianScene, Projected,
                                         pad_scene, project, random_scene)
 from repro_torch.core.camera import (Camera, default_camera, orbit_camera,
-                                     resize_camera)
+                                     resize_camera, stack_cameras)
 from repro_torch.core.culling import (TileGrid, aabb_mask, intersection_mask,
                                       obb_mask)
 from repro_torch.core.cat import (SamplingMode, entry_cat_mask,
@@ -18,24 +18,27 @@ from repro_torch.core.renderer import (GridConfig, OverflowPolicy,
                                        StreamOverflowError,
                                        StreamOverflowWarning, TestConfig,
                                        TileStream, cat_mask_elems,
-                                       measure_k_max)
+                                       frame_counters, measure_k_max)
 from repro_torch.core.metrics import psnr
 from repro_torch.core.pipeline import (FLICKER_CONFIG, GSCORE_CONFIG,
-                                       VANILLA_CONFIG, RenderConfig)
+                                       VANILLA_CONFIG, RenderConfig,
+                                       render_batch_with_stats)
 from repro_torch.core.precision import (FULL_FP16, FULL_FP32, FULL_FP8,
                                         MIXED, PrecisionScheme)
 
 __all__ = [
     "ALPHA_MIN", "GaussianScene", "Projected", "pad_scene", "project",
     "random_scene", "Camera", "default_camera", "orbit_camera",
-    "resize_camera", "TileGrid", "aabb_mask", "intersection_mask",
+    "resize_camera", "stack_cameras", "TileGrid", "aabb_mask", "intersection_mask",
     "obb_mask", "SamplingMode", "entry_cat_mask", "exact_minitile_mask",
     "minitile_cat_mask", "pr_gaussian_weight", "HierarchyOut",
     "StreamHierarchyOut", "baseline_masks", "hierarchical_test",
     "stream_entry_test", "GridConfig", "OverflowPolicy", "ProjectedScene",
     "RasterConfig", "RenderPlan", "Renderer", "StreamConfig",
     "StreamOverflowError", "StreamOverflowWarning", "TestConfig",
-    "TileStream", "cat_mask_elems", "measure_k_max", "psnr",
+    "TileStream", "cat_mask_elems", "frame_counters", "measure_k_max",
+    "psnr",
     "FULL_FP16", "FULL_FP32", "FULL_FP8", "MIXED", "PrecisionScheme",
     "FLICKER_CONFIG", "GSCORE_CONFIG", "VANILLA_CONFIG", "RenderConfig",
+    "render_batch_with_stats",
 ]

@@ -27,6 +27,20 @@ class Camera:
     def tan_half_fov_y(self):
         return self.height / (2.0 * self.fy)
 
+    @property
+    def frames(self) -> int:
+        """Leading frame count of a batched camera (`stack_cameras`)."""
+        if self.fx.dim() != 1:
+            raise ValueError("not a batched camera (stack_cameras builds "
+                             "one)")
+        return self.fx.shape[0]
+
+    def frame(self, i: int) -> "Camera":
+        """Frame i of a batched camera: views of row i of every tensor."""
+        return dataclasses.replace(
+            self, R_wc=self.R_wc[i], t_wc=self.t_wc[i], fx=self.fx[i],
+            fy=self.fy[i], cx=self.cx[i], cy=self.cy[i])
+
     def to(self, device) -> "Camera":
         """The same camera with every tensor field on `device`."""
         return dataclasses.replace(
@@ -49,6 +63,26 @@ def default_camera(width: int = 128, height: int = 128,
         cx=_f32(width / 2.0, device), cy=_f32(height / 2.0, device),
         width=width, height=height,
     )
+
+
+def stack_cameras(cameras) -> Camera:
+    """Stack same-resolution cameras into one batched Camera: a leading
+    frame axis on every tensor field, the static fields shared. Its
+    `frame(i)` is camera i again, value for value. Raises ValueError when
+    width, height or near differ."""
+    cameras = list(cameras)
+    if not cameras:
+        raise ValueError("stack_cameras needs at least one camera")
+    ref = cameras[0]
+    for c in cameras[1:]:
+        if (c.width, c.height, c.near) != (ref.width, ref.height, ref.near):
+            raise ValueError(
+                "cannot stack cameras with mixed static fields: "
+                f"{(c.width, c.height, c.near)} vs "
+                f"{(ref.width, ref.height, ref.near)}")
+    return dataclasses.replace(ref, **{
+        name: torch.stack([getattr(c, name) for c in cameras])
+        for name in ("R_wc", "t_wc", "fx", "fy", "cx", "cy")})
 
 
 def resize_camera(camera: Camera, width: int, height: int) -> Camera:

@@ -19,6 +19,13 @@ of a mask.
 Under `OverflowPolicy.SPILL` the CTU runs once per compacted pass. Counters
 in `ADDITIVE_COUNTER_KEYS` are sums over list entries, so summing them
 across passes gives the frame totals; the rest are scene-level.
+
+A batch of B frames runs the stream CTU once per pass for all frames
+(`stream_entry_test_frames`): `fold_frames` concatenates the frames'
+`Projected` along the Gaussian axis and stacks their tile axes, so frame
+b's tile t is row b·T + t and its list entry i indexes Gaussian b·N + i.
+Every step of the test is per entry, so a frame's rows are the rows its
+own test would give; the counters are reduced per frame from its rows.
 """
 from __future__ import annotations
 
@@ -177,6 +184,47 @@ def baseline_masks(proj: Projected, grid: TileGrid, method: str):
     raise ValueError(method)
 
 
+class FrameFold(NamedTuple):
+    """B frames of one grid folded into one tile axis (see the module
+    docstring). With one frame the fold is that frame, uncopied."""
+    proj: Projected               # the frames' Projected, concatenated on N
+    tile_origins: torch.Tensor    # (B·T, 2) each frame's tile origins
+    frames: int
+    n: int                        # Gaussians per frame
+
+    def rows(self, b: int, tiles: int) -> slice:
+        """Frame b's rows of a folded (B·T, ...) tensor."""
+        return slice(b * tiles, (b + 1) * tiles)
+
+    def ids(self, lists) -> torch.Tensor:
+        """(B·T, K) fold indices of per-frame (T, K) lists: frame b's
+        entry i -> b·N + max(i, 0), the row the frame's own gathers read
+        (they clamp empty slots to Gaussian 0 too)."""
+        if self.frames == 1:
+            return lists[0]
+        return torch.cat([l.clamp_min(0) + b * self.n
+                          for b, l in enumerate(lists)])
+
+    def cat(self, xs):
+        """Per-frame (T, ...) tensors stacked on the tile axis (None when
+        the frames carry none)."""
+        if xs[0] is None:
+            return None
+        return xs[0] if self.frames == 1 else torch.cat(xs)
+
+
+def fold_frames(projs, grid: TileGrid) -> FrameFold:
+    """Fold the `Projected` of B frames of one scene (one Gaussian count)
+    on `grid` for one CTU and one blend launch per pass."""
+    projs = list(projs)
+    origins = grid.tile_origins(projs[0].depth.device)
+    if len(projs) == 1:
+        return FrameFold(projs[0], origins, 1, projs[0].depth.shape[0])
+    proj = Projected(*(torch.cat(f) for f in zip(*projs)))
+    return FrameFold(proj, origins.repeat(len(projs), 1), len(projs),
+                     projs[0].depth.shape[0])
+
+
 class StreamHierarchyOut(NamedTuple):
     lists: torch.Tensor            # (T, K) int32 depth-ordered Gaussian ids
     valid: torch.Tensor            # (T, K) bool — slot occupied
@@ -251,21 +299,46 @@ def stream_entry_test(proj: Projected, grid: TileGrid, lists: torch.Tensor,
                       spiky_threshold: float = 3.0, *,
                       cat_fn: Optional[Callable] = None) -> StreamHierarchyOut:
     """The CTU stage: per-entry Stage-1 sub-tile bits and Mini-Tile CAT on a
-    compacted stream. cat_fn(proj, grid, lists, valid) -> (T, K, Mt) bool
-    replaces the plain `cat.entry_cat_mask` (the CUDA CTU kernel)."""
-    entry_sub = entry_subtile_mask(proj, grid, lists, valid)   # (T, K, Sp)
+    compacted stream. cat_fn(proj, grid, lists, valid, tile_origins=None)
+    -> (T, K, Mt) bool replaces the plain `cat.entry_cat_mask` (the CUDA
+    CTU kernel)."""
+    hout, = stream_entry_test_frames(
+        fold_frames([proj], grid), [proj], grid, [lists], [valid],
+        [overflow], mode, prec, spiky_threshold, cat_fn=cat_fn)
+    return hout
+
+
+def stream_entry_test_frames(fold: FrameFold, projs, grid: TileGrid, lists,
+                             valid, overflow,
+                             mode: SamplingMode = SamplingMode.SMOOTH_FOCUSED,
+                             prec: PrecisionScheme = FULL_FP32,
+                             spiky_threshold: float = 3.0, *,
+                             cat_fn: Optional[Callable] = None
+                             ) -> list[StreamHierarchyOut]:
+    """`stream_entry_test` of one pass of B frames in one evaluation over
+    their fold: projs, lists, valid, overflow hold one item per frame.
+    Returns one `StreamHierarchyOut` per frame, its masks rows of the
+    folded ones."""
+    ids, fvalid = fold.ids(lists), fold.cat(valid)
+    origins = fold.tile_origins
+    entry_sub = entry_subtile_mask(fold.proj, grid, ids, fvalid, origins)
     if cat_fn is None:
-        cat = entry_cat_mask(proj, grid, lists, valid, mode, prec,
-                             spiky_threshold)
+        cat = entry_cat_mask(fold.proj, grid, ids, fvalid, mode, prec,
+                             spiky_threshold, tile_origins=origins)
     else:
-        cat = cat_fn(proj, grid, lists, valid)                 # (T, K, Mt)
-    gate = entry_sub[:, :, grid.subtile_of_minitile_local(lists.device)]
-    entry_mini = cat & gate & valid[:, :, None]
-    sub_hits = entry_sub.sum(dim=-1)                           # (T, K)
+        cat = cat_fn(fold.proj, grid, ids, fvalid, tile_origins=origins)
+    gate = entry_sub[:, :, grid.subtile_of_minitile_local(ids.device)]
+    entry_mini = cat & gate & fvalid[:, :, None]               # (B·T, K, Mt)
+    sub_hits = entry_sub.sum(dim=-1)                           # (B·T, K)
     mini_hits = entry_mini.sum(dim=-1)
-    counters = stream_entry_counters(proj, grid, lists, valid, sub_hits,
-                                     mini_hits, mode, spiky_threshold)
-    return StreamHierarchyOut(lists=lists, valid=valid,
-                              entry_sub_mask=entry_sub,
-                              entry_mini_mask=entry_mini,
-                              overflow=overflow, counters=counters)
+    outs = []
+    for b in range(fold.frames):
+        rows = fold.rows(b, grid.num_tiles)
+        counters = stream_entry_counters(projs[b], grid, lists[b], valid[b],
+                                         sub_hits[rows], mini_hits[rows],
+                                         mode, spiky_threshold)
+        outs.append(StreamHierarchyOut(
+            lists=lists[b], valid=valid[b], entry_sub_mask=entry_sub[rows],
+            entry_mini_mask=entry_mini[rows], overflow=overflow[b],
+            counters=counters))
+    return outs

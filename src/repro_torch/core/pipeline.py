@@ -8,7 +8,8 @@ reference's original flat surface as thin shims:
   `to_renderer()` map it onto the structured configs (`use_cuda` →
   `TestConfig.backend="cuda"`, `fused` → `RasterConfig.fused`, `dataflow`
   → `RenderPlan.dataflow`), and `from_plan()` maps back.
-* `render` / `render_with_stats` — deprecated module-level entry points.
+* `render` / `render_with_stats` / `render_batch_with_stats` — deprecated
+  module-level entry points.
   They warn with `DeprecationWarning` and delegate to the equivalent plan,
   whose image and counters they return unchanged.
 * `FLICKER_CONFIG`, `VANILLA_CONFIG` (vanilla 3DGS, tile AABB) and
@@ -38,7 +39,8 @@ from repro_torch.core.metrics import psnr
 
 __all__ = [
     "RenderConfig", "FLICKER_CONFIG", "VANILLA_CONFIG", "GSCORE_CONFIG",
-    "render", "render_with_stats", "cat_mask_elems", "psnr",
+    "render", "render_with_stats", "render_batch_with_stats",
+    "cat_mask_elems", "psnr",
 ]
 
 
@@ -123,3 +125,10 @@ def render_with_stats(scene: GaussianScene, camera, cfg: RenderConfig):
     counters dict), those of the equivalent `cfg.to_plan()`."""
     _warn_deprecated("render_with_stats")
     return cfg.to_plan().render_with_stats(scene, camera)
+
+
+def render_batch_with_stats(scene: GaussianScene, cameras, cfg: RenderConfig):
+    """Deprecated: use `Renderer.render_batch_with_stats` (one call over a
+    batched camera; see `core.camera.stack_cameras`)."""
+    _warn_deprecated("render_batch_with_stats")
+    return cfg.to_plan().render_batch_with_stats(scene, cameras)

@@ -30,6 +30,27 @@ folds the passes front to back through carried state, so overflow entries
 render instead of being clamped while per-pass memory stays at the k_max
 size.
 
+`RenderPlan.render_batch_with_stats` renders B camera poses of one scene:
+preprocess and Stage 1 run per frame, then the CTU and the blend of pass
+i run once for all frames, folded into the tile axis
+(`core.hierarchy.FrameFold`), so the "cuda" backends launch K1 and K2
+once per pass for the batch. Each frame equals `render_with_stats` of its
+own camera bit for bit; `render_with_stats` is the batch of one.
+
+Every render emits a host-side span tree on the active tracer
+(`repro_torch.obs.trace`, NoopTracer by default):
+
+    render
+    ├── preprocess       (per frame)
+    ├── stage1_compact   (per frame)
+    ├── ctu   [pass=i]   (x n_passes, with that pass's CTU counters)
+    ├── blend [pass=i]   (x n_passes, with processed/blended deltas)
+    └── finalize
+
+For a batch the ctu and blend attributes are sums over its frames and the
+finalize and root ones per-frame means; with one frame they are the
+reference's eager tree and attributes.
+
 `RenderPlan.dataflow` selects how the hierarchy materializes between
 Stage 1 and the CTU: "stream" (the default: compact first, CTU on
 survivors only, O(T·k_max·16) masks) or "dense" (the O(regions·N) parity
@@ -52,6 +73,7 @@ from repro_torch.core.cat import SamplingMode
 from repro_torch.core import hierarchy as H
 from repro_torch.core import raster
 from repro_torch.core.precision import PrecisionScheme, MIXED
+from repro_torch.obs import trace as obs_trace
 
 BACKENDS = ("torch", "cuda")
 
@@ -263,49 +285,101 @@ class RenderPlan:
                 lists=ts.lists, valid=ts.valid, entry_sub_mask=None,
                 entry_mini_mask=entry, overflow=ts.overflow,
                 counters=ts.dense.counters)
+        hout, = self._ctu_frames([ps], H.fold_frames([ps.proj], ps.grid),
+                                 [ts])
+        return hout
+
+    def _ctu_frames(self, pss, fold: H.FrameFold, tss):
+        """`ctu` of one pass of B frames: on the stream CAT one evaluation
+        over the frame fold (one K1 launch on the "cuda" backend); the
+        dense oracle and the baselines gather per frame."""
+        if self.test.method != "cat" or self.dataflow != "stream":
+            return [self.ctu(ps, ts) for ps, ts in zip(pss, tss)]
         cat_fn = None
         if self.test.backend == "cuda":
             from repro_torch.kernels import ops as kops
             cat_fn = kops.entry_cat_fn(self.test.mode, self.test.precision,
                                        self.test.spiky_threshold)
-        return H.stream_entry_test(
-            ps.proj, ps.grid, ts.lists, ts.valid, ts.overflow,
-            self.test.mode, self.test.precision, self.test.spiky_threshold,
-            cat_fn=cat_fn)
+        return H.stream_entry_test_frames(
+            fold, [ps.proj for ps in pss], pss[0].grid,
+            [ts.lists for ts in tss], [ts.valid for ts in tss],
+            [ts.overflow for ts in tss], self.test.mode,
+            self.test.precision, self.test.spiky_threshold, cat_fn=cat_fn)
 
     def _blend_passes(self, ps: ProjectedScene, houts):
-        """Blend the spill passes front to back from one carried state.
-        Returns (RenderOut, blend counters, per-pass entry_alive list)."""
-        proj, grid = ps.proj, ps.grid
-        counters: dict = {}
+        """Blend one frame's spill passes front to back from one carried
+        state. Returns (RenderOut, blend counters, per-pass entry_alive
+        list)."""
+        return self._blend_frames(H.fold_frames([ps.proj], ps.grid),
+                                  ps.grid, [houts],
+                                  obs_trace.NoopTracer())[0]
+
+    def _blend_frames(self, fold: H.FrameFold, grid: TileGrid, houts,
+                      tracer):
+        """Blend B frames' spill passes, pass i of every frame in one fold
+        (one K2 launch when fused), each under a `blend[pass=i]` span.
+        houts: per frame, its per-pass `StreamHierarchyOut`s. Returns one
+        (RenderOut, blend counters, per-pass entry_alive list) per frame."""
+        device = fold.proj.depth.device
+        n_pass = len(houts[0])
+        passes = [[(h[i].lists, h[i].valid, h[i].entry_mini_mask)
+                   for h in houts] for i in range(n_pass)]
+        overflows = [h[0].overflow for h in houts]
+        prev = [0.0, 0.0]
+
+        def note(sp, processed, blended, alive):
+            tracer.block((processed, blended, alive))
+            if tracer.enabled:
+                proc = float(processed.sum(dtype=torch.float64))
+                bl = float(blended.sum(dtype=torch.float64))
+                sp.set(processed_delta=proc - prev[0],
+                       blended_delta=bl - prev[1],
+                       entries_alive=float(alive.sum()))
+                prev[:] = [proc, bl]
+
         if self.raster.fused:
             from repro_torch.kernels import ops as kops
-            out, fused_counters = kops.render_tiles_fused_passes(
-                proj, grid,
-                [(h.lists, h.valid, h.entry_mini_mask) for h in houts],
-                self.raster.background, houts[0].overflow)
-            counters.update(fused_counters)
-            k = houts[0].lists.shape[1]
-            alive_parts = [out.entry_alive[:, i * k:(i + 1) * k]
-                           for i in range(len(houts))]
+            results = kops.render_tiles_fused_frames(
+                fold, grid, passes, self.raster.background, overflows,
+                span_cb=lambda i: tracer.span(
+                    "blend", {"pass": i, "backend": "cuda"}),
+                pass_cb=lambda sp, fb: note(sp, fb.processed, fb.blended,
+                                            fb.entry_alive))
         else:
-            state = raster.init_blend_state(grid.num_tiles, grid.tile ** 2,
-                                            proj.depth.device)
+            state = raster.init_blend_state(fold.frames * grid.num_tiles,
+                                            grid.tile ** 2, device)
             alive_parts = []
-            for h in houts:
-                state, alive = raster.blend_pass(
-                    proj, grid, h.lists, h.valid, h.entry_mini_mask, state)
+            for i, frames in enumerate(passes):
+                lists, valid, masks = zip(*frames)
+                with tracer.span("blend",
+                                 {"pass": i, "backend": "torch"}) as sp:
+                    state, alive = raster.blend_pass(
+                        fold.proj, grid, fold.ids(lists), fold.cat(valid),
+                        fold.cat(masks), state,
+                        tile_origins=fold.tile_origins)
+                    note(sp, state.processed, state.blended, alive)
                 alive_parts.append(alive)
-            out = raster.finalize_blend(grid, state, self.raster.background,
-                                        houts[0].overflow,
-                                        torch.cat(alive_parts, dim=1))
+            entry_alive = torch.cat(alive_parts, dim=1)
             # The unfused sweep always walks every padded list slot.
-            counters["swept_per_pixel"] = torch.tensor(
-                float(sum(h.lists.shape[1] for h in houts)),
-                device=proj.depth.device)
-        counters["processed_per_pixel"] = out.processed_per_pixel.mean()
-        counters["blended_per_pixel"] = out.blended_per_pixel.mean()
-        return out, counters, alive_parts
+            swept = float(sum(frames[0][0].shape[1] for frames in passes))
+            results = []
+            for b in range(fold.frames):
+                rows = fold.rows(b, grid.num_tiles)
+                out = raster.finalize_blend(
+                    grid, raster.BlendState(*(x[rows] for x in state)),
+                    self.raster.background, overflows[b], entry_alive[rows])
+                results.append((out, dict(swept_per_pixel=torch.tensor(
+                    swept, device=device))))
+        frames = []
+        for out, counters in results:
+            counters = dict(counters)
+            counters["processed_per_pixel"] = out.processed_per_pixel.mean()
+            counters["blended_per_pixel"] = out.blended_per_pixel.mean()
+            k = out.entry_alive.shape[1] // n_pass
+            alive_parts = [out.entry_alive[:, i * k:(i + 1) * k]
+                           for i in range(n_pass)]
+            frames.append((out, counters, alive_parts))
+        return frames
 
     def _merge_hout_counters(self, houts) -> dict:
         """Fold per-pass CTU counters into frame totals. The stream CAT's
@@ -327,45 +401,150 @@ class RenderPlan:
         pass, sharing one carried blend state. enforce=False skips the
         overflow policy (the serving engine applies SPILL itself, retrying
         with more passes before a frame may report overflow)."""
-        ps = self.preprocess(scene, camera)
-        streams = self.stage1_compact(ps)
-        out, counters = self._render_streams(ps, streams)
-        if enforce:
-            enforce_overflow_policy(out.overflow, self.stream.overflow,
-                                    k_max=self.stream.k_max,
-                                    n_passes=self.n_passes)
+        (out, counters), = self._render_frames(scene, [camera], enforce)
         return out, counters
 
     def render(self, scene: GaussianScene, camera) -> raster.RenderOut:
         out, _ = self.render_with_stats(scene, camera)
         return out
 
+    def render_batch_with_stats(self, scene: GaussianScene, cameras, *,
+                                enforce: bool = True):
+        """Render B camera poses of one scene: preprocess and Stage 1 per
+        frame, then each pass's CTU and blend once for all frames (one K1
+        and one K2 launch per pass on the "cuda" backends). Under SPILL
+        every frame runs the plan's pass count; a frame with fewer passes
+        has empty later passes, on which K1 exits early and K2 runs no
+        K-block.
+
+        cameras: a batched `Camera` (`core.camera.stack_cameras`) at the
+        plan's resolution. Each frame equals `render_with_stats` of its own
+        camera bit for bit. The overflow policy applies to the batch (on
+        any frame's flag) unless enforce=False. Returns (RenderOut with a
+        leading frame axis, counters dict of (B,) tensors)."""
+        if (cameras.height, cameras.width) != (self.grid.height,
+                                               self.grid.width):
+            raise ValueError(
+                f"camera resolution {(cameras.height, cameras.width)} != "
+                f"plan grid {(self.grid.height, self.grid.width)}")
+        frames = self._render_frames(
+            scene, [cameras.frame(b) for b in range(cameras.frames)],
+            enforce)
+        out = raster.RenderOut(*(torch.stack(f) for f in
+                                 zip(*(o for o, _ in frames))))
+        counters = {k: torch.stack([c[k] for _, c in frames])
+                    for k in frames[0][1]}
+        return out, counters
+
+    def _render_frames(self, scene: GaussianScene, cameras,
+                       enforce: bool = True):
+        """The render of B frames under one `render` span: per-frame
+        preprocess and Stage 1, then `_render_streams_frames`. Returns one
+        (RenderOut, counters) per camera."""
+        tracer = obs_trace.current()
+        batch = len(cameras)
+        with tracer.span("render") as root:
+            if tracer.enabled:
+                root.set(dataflow=self.dataflow, method=self.test.method,
+                         k_max=self.stream.k_max, n_passes=self.n_passes,
+                         overflow_policy=self.stream.overflow.value,
+                         fused=self.raster.fused, tile_shards=1,
+                         height=self.grid.height, width=self.grid.width,
+                         plan_first_call=tracer.mark_first(self),
+                         traced=False, frames=batch)
+            pss, streams = [], []
+            for b, camera in enumerate(cameras):
+                frame = {"frame": b} if batch > 1 else None
+                with tracer.span("preprocess", frame) as sp:
+                    ps = self.preprocess(scene, camera)
+                    tracer.block(ps)
+                    if tracer.enabled:
+                        sp.set(n_gaussians=int(ps.proj.depth.shape[0]),
+                               tiles=int(ps.grid.num_tiles))
+                with tracer.span("stage1_compact", frame) as sp:
+                    tss = self.stage1_compact(ps)
+                    tracer.block(tss)
+                    if tracer.enabled:
+                        sp.set(survivors_per_pass=[
+                            float(ts.valid.sum()) for ts in tss],
+                            overflow=bool(tss[0].overflow))
+                pss.append(ps)
+                streams.append(tss)
+            frames = self._render_streams_frames(pss, streams, tracer, root)
+        if enforce:
+            enforce_overflow_policy(
+                any(bool(out.overflow) for out, _ in frames),
+                self.stream.overflow, k_max=self.stream.k_max,
+                n_passes=self.n_passes)
+        return frames
+
     def _render_streams(self, ps: ProjectedScene, streams):
-        """The post-Stage-1 tail: CTU per pass, counter merge, blend fold,
-        finalize. Returns (RenderOut, counters dict)."""
-        houts = [self.ctu(ps, ts) for ts in streams]
-        counters = self._merge_hout_counters(houts)
-        device = ps.proj.depth.device
+        """The post-Stage-1 tail of one frame: CTU per pass, counter merge,
+        blend fold, finalize. Returns (RenderOut, counters dict)."""
+        (out, counters), = self._render_streams_frames(
+            [ps], [streams], obs_trace.current())
+        return out, counters
+
+    def _render_streams_frames(self, pss, streams, tracer, root=None):
+        """The post-Stage-1 tail of B frames (`pss`, and per frame its
+        tuple of pass streams): pass i's CTU and blend once over the frame
+        fold, then the per-frame counter merge and finalize. Returns one
+        (RenderOut, counters dict) per frame."""
+        grid = pss[0].grid
+        batch = len(pss)
+        fold = H.fold_frames([ps.proj for ps in pss], grid)
+        houts = [[] for _ in pss]
+        for i in range(len(streams[0])):
+            with tracer.span("ctu", {"pass": i}) as sp:
+                pass_h = self._ctu_frames(pss, fold, [s[i] for s in streams])
+                tracer.block(pass_h)
+                if tracer.enabled and pass_h[0].counters:
+                    keys = [k for k, v in pass_h[0].counters.items()
+                            if v.dim() == 0]
+                    vals = torch.stack([h.counters[k].double()
+                                        for h in pass_h for k in keys])
+                    sums = vals.view(batch, len(keys)).sum(dim=0).tolist()
+                    sp.set(**dict(zip(keys, sums)))
+            for frame, h in zip(houts, pass_h):
+                frame.append(h)
+        counters = [self._merge_hout_counters(h) for h in houts]
         cat = self.test.method == "cat"
         if cat:
-            counters["cat_mask_bytes"] = torch.tensor(
-                float(cat_mask_elems(ps.grid, ps.proj.depth.shape[0],
-                                     self.stream.k_max, self.dataflow)),
-                device=device)
-        out, blend_counters, alive_parts = self._blend_passes(ps, houts)
-        counters.update(blend_counters)
-        if cat:
-            eff: dict = {}
-            for ts, hout, alive in zip(streams, houts, alive_parts):
-                for key, v in self._effective_counters(ps, ts, hout,
-                                                       alive).items():
-                    eff[key] = v if key not in eff else eff[key] + v
-            counters.update(eff)
-        # Passes that actually carried entries (>= 1 even on an empty frame).
-        used = sum(int(h.valid.any()) for h in houts)
-        counters["spill_passes"] = torch.tensor(float(max(used, 1)),
-                                                device=device)
-        return out, counters
+            for ps, c in zip(pss, counters):
+                c["cat_mask_bytes"] = torch.tensor(
+                    float(cat_mask_elems(ps.grid, ps.proj.depth.shape[0],
+                                         self.stream.k_max, self.dataflow)),
+                    device=ps.proj.depth.device)
+        blended = self._blend_frames(fold, grid, houts, tracer)
+        frames = []
+        with tracer.span("finalize") as sp:
+            for ps, ts, h, c, (out, blend_counters, alive_parts) in zip(
+                    pss, streams, houts, counters, blended):
+                c.update(blend_counters)
+                if cat:
+                    eff: dict = {}
+                    for t, hout, alive in zip(ts, h, alive_parts):
+                        for key, v in self._effective_counters(
+                                ps, t, hout, alive).items():
+                            eff[key] = v if key not in eff else eff[key] + v
+                    c.update(eff)
+                # Passes that actually carried entries (>= 1 even on an
+                # empty frame).
+                used = sum(int(x.valid.any()) for x in h)
+                c["spill_passes"] = torch.tensor(
+                    float(max(used, 1)), device=ps.proj.depth.device)
+                frames.append((out, c))
+            tracer.block(frames)
+            if tracer.enabled:
+                sp.set(spill_passes=_frame_mean(frames, "spill_passes"),
+                       overflow=any(bool(o.overflow) for o, _ in frames))
+                if root is not None:
+                    root.set(**{k: _frame_mean(frames, k) for k in
+                                ("processed_per_pixel", "blended_per_pixel",
+                                 "vru_pairs", "spill_passes")
+                                if k in frames[0][1]
+                                and frames[0][1][k].dim() == 0})
+        return frames
 
     # -- effective (termination-aware) counters -----------------------------
 
@@ -450,11 +629,27 @@ class Renderer:
         dataflow)."""
         return Renderer.from_plan(dataclasses.replace(self.plan, **kw))
 
+    def render(self, scene: GaussianScene, camera) -> raster.RenderOut:
+        return self.plan.render(scene, camera)
+
     def render_with_stats(self, scene: GaussianScene, camera):
         return self.plan.render_with_stats(scene, camera)
 
+    def render_batch_with_stats(self, scene: GaussianScene, cameras):
+        return self.plan.render_batch_with_stats(scene, cameras)
+
     def __repr__(self):
         return f"Renderer({self.plan!r})"
+
+
+def _frame_mean(frames, key: str) -> float:
+    """Mean over frames of a 0-d counter (the value itself for one)."""
+    return sum(float(c[key]) for _, c in frames) / len(frames)
+
+
+def frame_counters(counters: dict, i: int) -> dict:
+    """Slice frame `i`'s scalars out of a batched counters dict."""
+    return {k: v[i] for k, v in counters.items()}
 
 
 def enforce_overflow_policy(overflow, policy: OverflowPolicy, *,

@@ -10,8 +10,17 @@ blend (K3), the unfused baseline the fused kernel is measured against.
 Per-entry features are gathered in PyTorch (`gather_tile_features`); each
 kernel wrapper takes its plain PyTorch version when the tensors lie on the
 CPU.
+
+A batch of B frames folds into the tile axis (`core.hierarchy.FrameFold`):
+the operands of pass i of every frame are gathered from the frames'
+concatenated `Projected` at offset list indices, each frame's tile
+origins and pixel centres repeated, so K1 and K2 run once per pass for
+the whole batch (`render_tiles_fused_frames`). Both kernels treat tiles
+independently, so each frame's rows equal its own launch's.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -65,28 +74,34 @@ def hierarchical_test_cuda(proj: Projected, grid: TileGrid,
 
 
 def entry_cat_operands(proj: Projected, grid: TileGrid, lists, valid,
-                       spiky_threshold: float = 3.0):
+                       spiky_threshold: float = 3.0, tile_origins=None):
     """The PRTU kernel's operands gathered at the compacted lists:
     (p_top, p_bot, tile_origins, mu, conic, lhs, spiky). Invalid entries
-    get lhs = -inf so the kernel rejects them."""
+    get lhs = -inf so the kernel rejects them. tile_origins: (T, 2) origin
+    of each list row (the grid's tiles when None; a frame fold's
+    otherwise)."""
     device = lists.device
+    if tile_origins is None:
+        tile_origins = grid.tile_origins(device)
     p_top, p_bot = leader_corners(grid, device)
     idx = lists.clamp_min(0).long()
     lhs = torch.log(255.0 * torch.clamp_min(proj.opacity, 1e-12))[idx]
     lhs = torch.where(valid & proj.in_frustum[idx], lhs,
                       torch.full_like(lhs, float("-inf")))
     spiky = classify_spiky(proj.axis_ratio, spiky_threshold)[idx]
-    return (p_top, p_bot, grid.tile_origins(device).to(torch.float32),
+    return (p_top, p_bot, tile_origins.to(torch.float32),
             proj.mean2d[idx], proj.conic[idx], lhs, spiky.to(torch.int8))
 
 
 def entry_cat_mask_cuda(proj: Projected, grid: TileGrid, lists, valid,
                         mode: SamplingMode, prec: PrecisionScheme,
-                        spiky_threshold: float = 3.0) -> torch.Tensor:
+                        spiky_threshold: float = 3.0,
+                        tile_origins=None) -> torch.Tensor:
     """(T, K, Mt) bool entry CAT mask via the entry-stream PRTU kernel;
     drop-in for `core.cat.entry_cat_mask`."""
     mask = prtu.prtu_entry_cat_mask(
-        *entry_cat_operands(proj, grid, lists, valid, spiky_threshold),
+        *entry_cat_operands(proj, grid, lists, valid, spiky_threshold,
+                            tile_origins),
         mode=mode.value, coord_prec=prec.coord, delta_prec=prec.delta,
         mul_prec=prec.mul, acc_prec=prec.acc, slack=prec.slack)
     return mask != 0
@@ -96,17 +111,20 @@ def entry_cat_fn(mode: SamplingMode, prec: PrecisionScheme,
                  spiky_threshold: float = 3.0):
     """The `cat_fn` that `hierarchy.stream_entry_test` calls to route the
     entry CAT through the PRTU kernel."""
-    return lambda p, g, ls, v: entry_cat_mask_cuda(p, g, ls, v, mode, prec,
-                                                   spiky_threshold)
+    return lambda p, g, ls, v, tile_origins=None: entry_cat_mask_cuda(
+        p, g, ls, v, mode, prec, spiky_threshold, tile_origins)
 
 
 def gather_tile_features(proj: Projected, grid: TileGrid, lists, valid,
-                         entry_mask=None):
+                         entry_mask=None, tile_origins=None):
     """Kernel operand blocks from compacted per-tile lists: (pix (T,P,2),
     feat (T,K,8), colors (T,K,3), valid_i8 (T,K), allow (T,K,Mt) int8).
-    entry_mask: optional (T, K, Mt) per-entry CAT mask (None = all set)."""
+    entry_mask: optional (T, K, Mt) per-entry CAT mask (None = all set).
+    tile_origins: as in `entry_cat_operands`."""
     device = lists.device
-    pix = raster.tile_pixels(grid, grid.tile_origins(device))
+    if tile_origins is None:
+        tile_origins = grid.tile_origins(device)
+    pix = raster.tile_pixels(grid, tile_origins)
     idx = lists.clamp_min(0).long()
     feat = torch.cat([
         proj.mean2d[idx],                                 # (T, K, 2)
@@ -133,34 +151,68 @@ def blend_tiles_cuda(proj: Projected, grid: TileGrid, lists, valid,
 
 def render_tiles_fused_passes(proj: Projected, grid: TileGrid, passes,
                               background: float = 0.0, overflow=False):
-    """Fused-kernel blend over one or more compacted spill passes.
+    """Fused-kernel blend over one or more compacted spill passes of one
+    frame: `render_tiles_fused_frames` with a batch of one.
 
     passes: sequence of (lists (T, K), valid, entry_mask) — consecutive
-    segments of each tile's depth-ordered survivor list. The carried state
-    (transmittance, RGB, counters) threads between the kernel calls via
-    `init`, so the chain blends like one call over the concatenation when
-    K is a multiple of K_BLK. A pass whose tiles have all terminated runs
-    no chunk.
+    segments of each tile's depth-ordered survivor list. Returns
+    (RenderOut, counters); see `render_tiles_fused_frames`.
+    """
+    (out, counters), = render_tiles_fused_frames(
+        H.fold_frames([proj], grid), grid, [[p] for p in passes],
+        background, [overflow])
+    return out, counters
 
-    Returns (RenderOut, counters) with the kernel-measured
+
+def render_tiles_fused_frames(fold: H.FrameFold, grid: TileGrid, passes,
+                              background: float = 0.0, overflows=(False,),
+                              *, span_cb=None, pass_cb=None):
+    """Fused-kernel blend of B frames, one K2 launch per spill pass.
+
+    passes: per pass, one (lists (T, K), valid, entry_mask) per frame —
+    consecutive segments of each tile's depth-ordered survivor list. The
+    carried state (transmittance, RGB, counters) threads between the
+    kernel calls via `init`, so the chain blends like one call over the
+    concatenation when K is a multiple of K_BLK. A pass whose tiles have
+    all terminated runs no chunk.
+
+    span_cb(i) -> context manager bracketing pass i (the renderer's
+    `blend[pass=i]` span); pass_cb(span, fb) runs inside it after the
+    launch. Both optional, so this layer never imports obs.
+
+    Returns one (RenderOut, counters) per frame: the kernel-measured
     processed/blended/entry_alive (entry_alive concatenated over passes
     along K) and the sweep counters only the fused kernel reports:
     kblocks_processed, kblocks_total, swept_per_pixel.
     """
     state = None
     alive_parts = []
-    kproc = torch.zeros((), dtype=torch.float32, device=proj.depth.device)
+    device = fold.proj.depth.device
+    kproc = torch.zeros((fold.frames,), dtype=torch.float32, device=device)
     kblocks_total = 0
-    for lists, valid, entry_mask in passes:
-        ops = gather_tile_features(proj, grid, lists, valid, entry_mask)
-        fb = krender.blend_tiles_fused(*ops, init=state)
-        state = (fb.trans, fb.rgb, fb.processed, fb.blended)
+    for i, frames in enumerate(passes):
+        lists, valid, masks = zip(*frames)
+        ops = gather_tile_features(fold.proj, grid, fold.ids(lists),
+                                   fold.cat(valid), fold.cat(masks),
+                                   tile_origins=fold.tile_origins)
+        with (span_cb(i) if span_cb is not None
+              else contextlib.nullcontext()) as sp:
+            fb = krender.blend_tiles_fused(*ops, init=state)
+            state = (fb.trans, fb.rgb, fb.processed, fb.blended)
+            if pass_cb is not None:
+                pass_cb(sp, fb)
         alive_parts.append(fb.entry_alive)
-        kproc = kproc + fb.kblocks_processed.sum().to(torch.float32)
+        kproc = kproc + fb.kblocks_processed.view(
+            fold.frames, grid.num_tiles).sum(dim=1).to(torch.float32)
         kblocks_total += fb.kblocks_total
     entry_alive = torch.cat(alive_parts, dim=1)
-    return finalize_fused_passes(grid, state, background, overflow,
-                                 entry_alive, kproc, kblocks_total)
+    outs = []
+    for b in range(fold.frames):
+        rows = fold.rows(b, grid.num_tiles)
+        outs.append(finalize_fused_passes(
+            grid, tuple(x[rows] for x in state), background, overflows[b],
+            entry_alive[rows], kproc[b], kblocks_total))
+    return outs
 
 
 def finalize_fused_passes(grid: TileGrid, state, background, overflow,

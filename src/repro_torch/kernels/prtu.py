@@ -53,6 +53,15 @@ def prtu_entry_cat_mask_plain(p_top_local, p_bot_local, tile_origins, mu,
     return hit.to(torch.int8)
 
 
+def check_entry_index(t: int, k: int) -> None:
+    """The entry kernel indexes entries, their conic rows (3·e + 2) and
+    their mask bytes in int32: raise unless T·K·Mt < 2**31. A batch folded
+    into the tile axis (B·T rows) is held to the same bound."""
+    if t * k * MINITILES >= 2 ** 31:
+        raise ValueError(f"{t}x{k} entries x {MINITILES} mini-tiles exceed "
+                         "the entry kernel's int32 index")
+
+
 def prtu_entry_cat_mask(p_top_local: torch.Tensor, p_bot_local: torch.Tensor,
                         tile_origins: torch.Tensor, mu: torch.Tensor,
                         conic: torch.Tensor, lhs: torch.Tensor,
@@ -87,8 +96,7 @@ def prtu_entry_cat_mask(p_top_local: torch.Tensor, p_bot_local: torch.Tensor,
     check("lhs", lhs, f32, (t, k), dev)
     check("spiky", spiky, torch.int8, (t, k), dev)
     check_aligned("mu", mu, 8)                     # read as float2
-    if t * k >= 2 ** 31:
-        raise ValueError(f"{t}x{k} entries exceed the kernel's int32 index")
+    check_entry_index(t, k)
     codes = _codes(mode, coord_prec, delta_prec, mul_prec, acc_prec)
     out = torch.empty((t, k, MINITILES), dtype=torch.int8, device=dev)
     lib = _lib()

@@ -1,44 +1,81 @@
-"""RenderEngine: a registry of scenes served frame by frame on one device.
+"""RenderEngine: multi-scene, bucketed, batched rendering on one device.
 
 The engine is the request-level layer above the staged render API
-(`core.renderer`). It holds named `GaussianScene`s on its device and
-renders each request of a batch through the plan specialized to the
-scene and the request's resolution:
+(`core.renderer`): it holds a registry of named `GaussianScene`s on its
+device and serves whole batches of camera poses per call through
+`RenderPlan.render_batch_with_stats`, which runs each spill pass's CTU and
+blend once for the batch (one K1 and one K2 launch per pass on the "cuda"
+backends).
+
+Shapes are bucketed as in the reference, so that traffic reuses its plans:
 
   scene bucket — scenes are padded to the next power-of-two Gaussian count
                  with inert Gaussians (`core.gaussians.pad_scene`: opacity
                  below the 1/255 blend threshold, culled for every camera);
+  batch bucket — batches are padded to the next power-of-two frame count
+                 (at most `max_batch`) by repeating the last camera, and the
+                 padding frames are sliced off the result;
   k_max        — per-scene list capacity, given or measured from a camera
                  probe set at registration (`probe_cameras=`): the longest
                  Stage-1 survivor list over the probes, pow2-bucketed.
 
+The port has no compiler. Its plan cache is keyed like the reference's jit
+cache, (scene bucket, RenderPlan, batch bucket), LRU-bounded by
+`jit_cache_size`, and holds what the port builds per key: the plan
+specialised to the scene's k_max, the pass bucket and the resolution (the
+grid's small index tensors are rebuilt per render). `compile_count`,
+`engine_compiles_total` and `engine_jit_cache_evictions_total` count its
+misses and evictions under the reference's names, and a `jit_render`
+span's `compile` attribute marks a miss. Every render is eager, so the
+plan's stage spans nest under every dispatch's `jit_render` span, hit or
+miss.
+
+Overflow: a frame whose Stage-1 tile lists exceed the scene's k_max is
+clamped; the engine then applies the plan's `OverflowPolicy` per batch on
+the per-frame overflow flags — WARN (the serving default) emits a
+`StreamOverflowWarning`, RAISE raises `StreamOverflowError` — and counts
+`overflow_frames` into telemetry either way.
+
 SPILL serving: with `OverflowPolicy.SPILL` the plan's k_max is the per-pass
 streaming chunk and the engine derives the pass count per scene, rounded up
-to a power of two. A frame that still exhausts its spill capacity (off-probe
-traffic) is re-rendered with a doubled pass bucket, which sticks for the
-scene, so SPILL frames never report `FrameResult.overflow`.
+to a power of two. A batch that still exhausts its spill capacity
+(off-probe traffic) is re-rendered with a doubled pass bucket, which sticks
+for the scene, so SPILL frames never report `FrameResult.overflow`.
 
 The engine runs on `torch.device("cuda")` unless it is given another
-device, and raises if CUDA is asked for and absent.
+device, and raises if CUDA is asked for and absent. Incremental sessions,
+LOD scenes and multi-device meshes are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional, Sequence, Union
+from collections import OrderedDict
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.core.camera import Camera
+from repro_torch.core.camera import Camera, stack_cameras
 from repro_torch.core.gaussians import GaussianScene, pad_scene
+from repro_torch.core.pipeline import RenderConfig
 from repro_torch.core.renderer import (OverflowPolicy, RenderPlan, Renderer,
-                                       enforce_overflow_policy, measure_k_max,
+                                       enforce_overflow_policy,
+                                       frame_counters, measure_k_max,
                                        next_pow2)
+from repro_torch.obs import trace as obs_trace
+from repro_torch.serving.telemetry import Telemetry
 
 
 def scene_bucket(n: int) -> int:
     """Gaussian-count bucket a scene is padded to."""
     return next_pow2(n)
+
+
+def batch_bucket(n: int, max_batch: int) -> int:
+    """Frame-count bucket a batch is padded to: next power of two, clamped
+    to `max_batch` (so a non-power-of-two cap is itself the top bucket and
+    the padded batch never exceeds it)."""
+    return min(next_pow2(n), max_batch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +88,14 @@ class RenderRequest:
 
 @dataclasses.dataclass(frozen=True)
 class FrameResult:
-    """Per-request render output."""
+    """Per-request render output (one frame sliced out of its batch)."""
     request: RenderRequest
     image: torch.Tensor       # (H, W, 3) on the engine's device
     alpha: torch.Tensor       # (H, W)
     counters: dict            # 0-d tensors for this frame
-    render_s: float           # wall-clock of this frame, device-synced
+    batch_size: int           # real frames in the batch that served this
+    bucket_size: int          # padded frame count the batch rendered at
+    render_s: float           # wall-clock of the whole batch, device-synced
     passes_run: int           # spill passes rendered, retries included
     overflow: bool = False    # this frame's Stage-1 lists were clamped
 
@@ -79,28 +118,61 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-class RenderEngine:
-    """Registry of scenes + per-frame renderer.
+def _as_plan(base) -> RenderPlan:
+    """Renderer | RenderPlan | legacy RenderConfig | None -> a plan."""
+    if base is None:
+        return RenderPlan()
+    if isinstance(base, RenderPlan):
+        return base
+    if isinstance(base, Renderer):
+        return base.plan
+    if hasattr(base, "to_plan"):
+        return base.to_plan()
+    raise TypeError(f"cannot build a RenderPlan from {type(base).__name__}")
 
-    base: the render configuration to serve with — a `Renderer` or a
-        `RenderPlan`. Its grid resolution and k_max are overridden per
-        (request resolution, scene) at render time.
+
+class RenderEngine:
+    """Registry of scenes + bucketed plan cache + batch renderer.
+
+    base: the render configuration to serve with — a `Renderer`, a
+        `RenderPlan`, or a legacy flat `RenderConfig`. Its grid resolution
+        and k_max are overridden per (request resolution, scene).
     device: where scenes live and frames render (default "cuda").
-    overflow: the OverflowPolicy applied per frame. None keeps the base
+    max_batch: upper bound on the padded batch bucket; a larger batch
+        raises.
+    pad_scenes: bucket scene sizes (power-of-two padding with inert
+        Gaussians).
+    telemetry: where batches are recorded (a fresh `Telemetry` on the
+        process-default metrics registry when None).
+    overflow: the OverflowPolicy applied per batch. None keeps the base
         plan's policy, except that the core default CLAMP is upgraded to
         WARN: serving traffic should never clamp silently.
+    fused: when not None, overrides the raster stage — the fused blend
+        (True) or the plain per-entry fold (False). Part of the cache key.
     dataflow: when not None, overrides the plan's dataflow: "stream" (the
         survivor-stream path, O(tiles·k_max) CAT memory, the only one that
         fits production scene sizes) or "dense" (the O(regions·N) parity
         oracle).
+    jit_cache_size: LRU capacity of the plan cache; past it the
+        oldest-hit plan is evicted.
+    max_scenes: LRU capacity of the scene registry (None = unbounded);
+        least-recently-served scenes are evicted past it.
     """
 
-    def __init__(self, base: Union[Renderer, RenderPlan, None] = None, *,
-                 device: Union[str, torch.device] = "cuda",
+    def __init__(self,
+                 base: Union[Renderer, RenderPlan, RenderConfig, None] = None,
+                 *, device: Union[str, torch.device] = "cuda",
+                 max_batch: int = 64, pad_scenes: bool = True,
+                 telemetry: Optional[Telemetry] = None,
                  overflow: Union[OverflowPolicy, str, None] = None,
-                 dataflow: Optional[str] = None):
-        plan = (RenderPlan() if base is None else
-                base.plan if isinstance(base, Renderer) else base)
+                 fused: Optional[bool] = None,
+                 dataflow: Optional[str] = None,
+                 jit_cache_size: int = 64,
+                 max_scenes: Optional[int] = None):
+        plan = _as_plan(base)
+        if fused is not None:
+            plan = dataclasses.replace(
+                plan, raster=dataclasses.replace(plan.raster, fused=fused))
         if dataflow is not None:
             plan = dataclasses.replace(plan, dataflow=dataflow)
         if overflow is None and plan.stream.overflow is OverflowPolicy.CLAMP:
@@ -109,13 +181,29 @@ class RenderEngine:
             plan = dataclasses.replace(
                 plan, stream=dataclasses.replace(
                     plan.stream, overflow=OverflowPolicy(overflow)))
+        if jit_cache_size < 1:
+            raise ValueError(f"jit_cache_size must be >= 1, "
+                             f"got {jit_cache_size}")
+        if max_scenes is not None and max_scenes < 1:
+            raise ValueError(f"max_scenes must be >= 1, got {max_scenes}")
         self.plan = plan
         self.device = _resolve_device(device)
-        self._scenes: dict[str, _SceneEntry] = {}
+        self.max_batch = max_batch
+        self.pad_scenes = pad_scenes
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        self.jit_cache_size = jit_cache_size
+        self.max_scenes = max_scenes
+        self._scenes: OrderedDict[str, _SceneEntry] = OrderedDict()
+        self._cache: OrderedDict[tuple, Callable] = OrderedDict()
+        self.compile_count = 0
+        self.jit_cache_evictions = 0
+        self.scene_evictions = 0
         # Per-scene learned multiplier on the spill pass bucket: doubled
-        # whenever a SPILL frame exhausts its capacity.
+        # whenever a SPILL batch exhausts its capacity.
         self._spill_boost: dict[str, int] = {}
         self.spill_retries = 0
+
+    # -- registry -----------------------------------------------------------
 
     def register_scene(self, name: str, scene: GaussianScene, *,
                        k_max: Optional[int] = None,
@@ -126,7 +214,7 @@ class RenderEngine:
         over `probe_cameras` if given (`core.renderer.measure_k_max`,
         capped at the scene bucket), else the padded Gaussian count."""
         n_real = scene.n
-        n_bucket = scene_bucket(n_real)
+        n_bucket = scene_bucket(n_real) if self.pad_scenes else n_real
         padded = pad_scene(scene.to(self.device), n_bucket)
         if k_max is None and probe_cameras is not None:
             # Padding is inert and culled, so it never lengthens a list.
@@ -136,6 +224,22 @@ class RenderEngine:
         entry = _SceneEntry(scene=padded, n_real=n_real, n_bucket=n_bucket,
                             k_max=k_max if k_max is not None else n_bucket)
         self._scenes[name] = entry
+        self._scenes.move_to_end(name)   # re-register refreshes LRU position
+        reg = self.telemetry.registry
+        if self.max_scenes is not None:
+            while len(self._scenes) > self.max_scenes:
+                old, _ = self._scenes.popitem(last=False)
+                self._spill_boost.pop(old, None)
+                self.scene_evictions += 1
+                reg.counter(
+                    "engine_scene_evictions_total",
+                    "Scenes evicted from the registry (LRU past max_scenes)"
+                ).inc()
+        reg.gauge("engine_scene_k_max", "Per-scene Stage-1 list capacity "
+                  "(probe-measured or given; scene bucket when defaulted)",
+                  ("scene",)).set(entry.k_max, scene=name)
+        reg.gauge("engine_scene_gaussians", "Registered (real) Gaussian "
+                  "count per scene", ("scene",)).set(entry.n_real, scene=name)
         return entry
 
     def scene(self, name: str) -> GaussianScene:
@@ -144,6 +248,14 @@ class RenderEngine:
 
     def scene_names(self) -> list[str]:
         return list(self._scenes)
+
+    def _entry(self, name: str) -> _SceneEntry:
+        """Registry lookup that refreshes the scene's LRU position."""
+        entry = self._scenes[name]
+        self._scenes.move_to_end(name)
+        return entry
+
+    # -- plan cache ---------------------------------------------------------
 
     def plan_for(self, name: str, height: int, width: int) -> RenderPlan:
         """The engine plan specialized to a scene's k_max and a resolution.
@@ -172,10 +284,44 @@ class RenderEngine:
             self.plan, grid=self.plan.grid.with_resolution(height, width),
             stream=stream)
 
+    def _render_fn(self, n_bucket: int, plan: RenderPlan, bucket: int):
+        """Returns (render callable, miss: bool) for a cache key; a miss
+        builds the entry and counts as a compile."""
+        key = (n_bucket, plan, bucket)
+        fn = self._cache.get(key)
+        miss = fn is None
+        reg = self.telemetry.registry
+        if miss:
+            self.compile_count += 1
+
+            def fn(scene, cams):
+                return plan.render_batch_with_stats(scene, cams,
+                                                    enforce=False)
+            self._cache[key] = fn
+            reg.counter("engine_compiles_total",
+                        "Jit-cache misses (traces + compiles)").inc()
+            while len(self._cache) > self.jit_cache_size:
+                self._cache.popitem(last=False)
+                self.jit_cache_evictions += 1
+                reg.counter(
+                    "engine_jit_cache_evictions_total",
+                    "Executables evicted from the jit cache (LRU past "
+                    "jit_cache_size); next use recompiles").inc()
+            reg.gauge("engine_jit_cache_size",
+                      "Compiled executables held by the engine"
+                      ).set(len(self._cache))
+        else:
+            self._cache.move_to_end(key)   # LRU touch on a hit
+        return fn, miss
+
+    # -- rendering ----------------------------------------------------------
+
     def render_batch(self, requests: Sequence[RenderRequest]
                      ) -> list[FrameResult]:
-        """Render a homogeneous batch (one scene, one resolution), one frame
-        after another, results in request order."""
+        """Render a homogeneous batch (one scene, one resolution, at most
+        `max_batch` requests) in one batched render, results in request
+        order. Use `serving.batching.MicroBatcher` or
+        `serving.scheduler.Scheduler` to group mixed traffic."""
         requests = list(requests)
         if not requests:
             return []
@@ -190,42 +336,77 @@ class RenderEngine:
         if len(res) != 1:
             raise ValueError(f"mixed resolutions in one batch: {sorted(res)}")
         (height, width), = res
-        return [self._render_one(r, name, height, width) for r in requests]
+        if len(requests) > self.max_batch:
+            raise ValueError(f"batch of {len(requests)} exceeds max_batch="
+                             f"{self.max_batch}; split it upstream")
+        return self._render_batched(requests, name, height, width)
 
-    def _render_one(self, request: RenderRequest, name: str, height: int,
-                    width: int) -> FrameResult:
-        entry = self._scenes[name]
-        camera = request.camera.to(self.device)
-        passes_run = 0
-        t0 = time.perf_counter()
-        while True:
-            plan = self.plan_for(name, height, width)
-            out, counters = plan.render_with_stats(entry.scene, camera,
-                                                   enforce=False)
-            passes_run += plan.n_passes
-            overflow = bool(out.overflow)
-            capacity = plan.stream.k_max * plan.n_passes
-            if (overflow and plan.stream.overflow is OverflowPolicy.SPILL
-                    and capacity < entry.n_bucket):
-                # Off-probe traffic exhausted the spill capacity: double the
-                # scene's pass bucket (it sticks) and re-render.
-                self._spill_boost[name] = 2 * self._spill_boost.get(name, 1)
-                self.spill_retries += 1
-                continue
-            break
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - t0
-        counters = dict(counters)
-        # Report the real Gaussian count, not the padded bucket.
-        counters["n_gaussians"] = torch.tensor(float(entry.n_real),
-                                               device=self.device)
-        if overflow:
+    def _render_batched(self, requests: Sequence[RenderRequest], name: str,
+                        height: int, width: int) -> list[FrameResult]:
+        entry = self._entry(name)
+        n = len(requests)
+        bucket = batch_bucket(n, self.max_batch)
+        cameras = [r.camera.to(self.device) for r in requests]
+        cameras += [cameras[-1]] * (bucket - n)   # pad: frames are pure,
+        cams = stack_cameras(cameras)             # so extras are discarded
+
+        tracer = obs_trace.current()
+        retries = passes_run = 0
+        t0 = time.perf_counter()   # spans retries: render_s is the wall the
+        with tracer.span("engine.render_batch",   # batch cost, retries incl.
+                         {"scene": name, "batch": n, "bucket": bucket,
+                          "res": f"{width}x{height}"}) as batch_span:
+            while True:
+                plan = self.plan_for(name, height, width)
+                fn, miss = self._render_fn(entry.n_bucket, plan, bucket)
+                with tracer.span("jit_render",
+                                 {"compile": miss,
+                                  "n_passes": plan.stream.max_spill_passes,
+                                  "k_max": plan.stream.k_max}):
+                    out, counters = fn(entry.scene, cams)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                passes_run += plan.n_passes
+                dt = time.perf_counter() - t0
+                frame_overflow = out.overflow[:n].tolist()
+                overflow_frames = int(sum(frame_overflow))
+                spill = plan.stream.overflow is OverflowPolicy.SPILL
+                capacity = plan.stream.k_max * plan.stream.max_spill_passes
+                if overflow_frames and spill and capacity < entry.n_bucket:
+                    # Off-probe traffic exhausted the spill capacity: double
+                    # the scene's pass bucket (it sticks) and re-render.
+                    self._spill_boost[name] = \
+                        2 * self._spill_boost.get(name, 1)
+                    self.spill_retries += 1
+                    retries += 1
+                    continue
+                break
+            if tracer.enabled:
+                batch_span.set(retries=retries,
+                               overflow_frames=overflow_frames, wall_s=dt)
+
+        # Drop padding frames, then report the real Gaussian count, not the
+        # padded bucket.
+        counters = {k: v[:n] for k, v in counters.items()}
+        if "n_gaussians" in counters:
+            counters["n_gaussians"] = torch.full(
+                (n,), float(entry.n_real), device=self.device)
+        self.telemetry.record_batch(batch_size=n, bucket_size=bucket,
+                                    latency_s=dt, counters=counters,
+                                    height=height, width=width,
+                                    overflow_frames=overflow_frames,
+                                    spill_retries=retries)
+        if overflow_frames:
             enforce_overflow_policy(
                 True, plan.stream.overflow, k_max=plan.stream.k_max,
                 n_passes=plan.n_passes,
-                context=f"scene {name!r} at {height}x{width}")
-        return FrameResult(request=request, image=out.image, alpha=out.alpha,
-                           counters=counters,
-                           render_s=dt, passes_run=passes_run,
-                           overflow=overflow)
+                context=f"{overflow_frames}/{n} frames of scene {name!r} "
+                        f"at {height}x{width}")
+        return [
+            FrameResult(request=r, image=out.image[i], alpha=out.alpha[i],
+                        counters=frame_counters(counters, i), batch_size=n,
+                        bucket_size=bucket, render_s=dt,
+                        passes_run=passes_run,
+                        overflow=bool(frame_overflow[i]))
+            for i, r in enumerate(requests)
+        ]

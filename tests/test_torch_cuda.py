@@ -10,7 +10,9 @@ Tolerances: K1 (entry CAT) FULL_FP32 exact, MIXED flip rate < 5e-4
 against the plain version on the CPU, and exact against the plain version
 on the card (leaders off the 4x4 lattice, an all-invalid pass, |Δ| on both
 sides of 464); K2 (fused blend) rgb/trans atol 2e-4, counters exact (also
-with sparse masks, ragged K and carried state); K4 (dense CAT) exact
+with sparse masks, ragged K and carried state; a batch of two frames
+folded into the tile axis equal to per-frame launches bit for bit, K1 and
+K2 both); K4 (dense CAT) exact
 under FULL_FP32 and MIXED; K3 (full-sweep blend) rgb/trans atol 1e-6;
 the kernels' fp16/fp8 rounding (`prtu.alg1_quant`) bit-equal to the plain
 quantizer, NaN matching any NaN. The
@@ -413,12 +415,64 @@ def test_entry_cat_kernel_fp8_overflow_band(cuda, prec):
     assert got[near_edge & ~far].any()
 
 
+def check_folded_batch_equals_per_frame(cuda):
+    """Two 64² frames of one SPILL plan folded into the tile axis: each
+    pass's one K1 launch gives the per-frame launches' masks, and the
+    folded K2 chain (one launch a pass) each frame's own chain, bit for
+    bit."""
+    from repro_torch.core import (GridConfig, RasterConfig, RenderPlan,
+                                  StreamConfig, TestConfig, orbit_camera,
+                                  random_scene)
+    from repro_torch.core import hierarchy as H
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(15)
+    scene = random_scene(gen, 3000, scale_range=(-2.5, -2.0),
+                         device=cuda)
+    plan = RenderPlan(grid=GridConfig(64, 64),
+                      test=TestConfig(backend="cuda"),
+                      stream=StreamConfig(k_max=128, overflow="spill",
+                                          max_spill_passes=2),
+                      raster=RasterConfig(fused=True))
+    cams = [orbit_camera(a, 64, 64, device=cuda) for a in (0.2, 1.9)]
+    pss = [plan.preprocess(scene, c) for c in cams]
+    streams = [plan.stage1_compact(ps) for ps in pss]
+    grid = pss[0].grid
+    fold = H.fold_frames([ps.proj for ps in pss], grid)
+    mode, prec = plan.test.mode, plan.test.precision
+    passes = []
+    for i in range(plan.n_passes):
+        lists = [s[i].lists for s in streams]
+        valid = [s[i].valid for s in streams]
+        before = prtu.launches
+        folded = ops.entry_cat_mask_cuda(
+            fold.proj, grid, fold.ids(lists), fold.cat(valid), mode, prec,
+            tile_origins=fold.tile_origins)
+        assert prtu.launches == before + 1
+        singles = [ops.entry_cat_mask_cuda(ps.proj, grid, ls, v, mode, prec)
+                   for ps, ls, v in zip(pss, lists, valid)]
+        assert torch.equal(folded, torch.cat(singles))
+        passes.append([(ls, v, m) for ls, v, m in zip(lists, valid,
+                                                      singles)])
+    before = render.launches
+    batch = ops.render_tiles_fused_frames(fold, grid, passes,
+                                          overflows=[False, False])
+    assert render.launches == before + plan.n_passes
+    for b, ps in enumerate(pss):
+        out, counters = ops.render_tiles_fused_passes(
+            ps.proj, grid, [p[b] for p in passes])
+        for x, y in zip(batch[b][0], out):
+            assert torch.equal(x, y)
+        for k in counters:
+            assert torch.equal(batch[b][1][k], counters[k]), k
+
+
 @pytest.mark.cuda
 def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     """K2 with ~30% of the mini-tile bits set, wide opaque entries (pixels
     and whole tiles die mid-chunk), a ragged K = 300 and state carried from
     a first pass: rgb/trans within 2e-4 of the plain version, counters
-    equal."""
+    equal. Then a folded two-frame batch through K1 and K2 against the
+    per-frame launches (`check_folded_batch_equals_per_frame`)."""
     t = 24
     rng = np.random.default_rng(11)
     first = [torch.from_numpy(x) for x in blend_operands(12, t=t, k=128)]
@@ -437,6 +491,7 @@ def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
                                    init=tuple(x.to(cuda) for x in init))
     got = type(got)(*(x.cpu() if torch.is_tensor(x) else x for x in got))
     assert_fused_equal(got, want)
+    check_folded_batch_equals_per_frame(cuda)
 
 
 @pytest.mark.cuda
