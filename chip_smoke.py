@@ -81,13 +81,25 @@ Phases, in order:
         then K3 within 1e-6 of its plain version on the same operands,
         with its device ms and bound there (the kernels line reports this
         shape)
+  4g. runs last, after phase 6: frame-coherent sessions. An
+     `incremental=True` engine on the hd1080 base plan with the 512k scene
+     serves three sessions of four 1920×1088 frames each through
+     `render_batch`, one session after the other: `static` (one pose,
+     repeated), `drift` (`trajectory_cameras` at 2π/262144 a frame) and
+     `orbit` (its default 2π/64). Each frame: tiles reused and
+     recompacted, full recompactions, camera delta, the Stage-1 span wall
+     (`stage1_incremental` or `stage1_compact`), the probe's wall and the
+     frame's; K1 and K2 launched once a pass; image, alpha and every
+     counter but the three coherence ones bit-equal to
+     `render_with_stats` of the same pose on the same plan. `static`
+     frames 1-3 reuse every tile, `orbit` frames all fall back
   5. one {"kernels": [...]} line, the card line, and as the last line
      {"ok": true, "device": {...}}
 
 Exits non-zero without printing a result when CUDA is unavailable or any
 phase fails. `--json PATH` also writes every measurement to PATH.
 `--passes-only` runs phases 1 and 4c alone and prints their sums as its
-last line; `--offpath-only` runs phase 1, the 1024² setup, phase 6a and
+last line; `--sessions-only` runs phases 1 and 4g; `--offpath-only` runs phase 1, the 1024² setup, phase 6a and
 K3 on the 1024² frame's lists, and prints their times on the line before
 the card line and the contract's last line. A copy of this script placed
 at the root of another commit's tree (`git archive`) times that commit's
@@ -112,6 +124,7 @@ import argparse
 import dataclasses
 import inspect
 import json
+import math
 import os
 import subprocess
 import sys
@@ -127,7 +140,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.core import (FULL_FP32, MIXED, GridConfig,  # noqa: E402
                               RasterConfig, RenderPlan, Renderer,
                               StreamConfig, TestConfig, default_camera,
-                              measure_k_max, psnr, random_scene)
+                              measure_k_max, project, psnr, random_scene,
+                              tile_fingerprints)
 from repro_torch.core.cat import leader_corners  # noqa: E402
 from repro_torch.core.hierarchy import count_true  # noqa: E402
 from repro_torch.core.raster import entry_mask_from_dense, untile  # noqa: E402
@@ -137,11 +151,14 @@ from repro_torch.core.camera import resize_camera  # noqa: E402
 from repro_torch.core.hierarchy import fold_frames  # noqa: E402
 from repro_torch.kernels import build, ops, prtu, render  # noqa: E402
 from repro_torch import obs  # noqa: E402
+from repro_torch.core.coherence import camera_delta  # noqa: E402
 from repro_torch.serving import (HD_SCENE_KW, AdmissionRejected,  # noqa: E402
                                  RenderEngine, RenderRequest, Scheduler,
                                  Telemetry, hd1080_cameras, hd1080_engine,
-                                 open_loop_trace, replay_open_loop)
-from repro_torch.serving.workloads import arrival_camera  # noqa: E402
+                                 max_batch_for, open_loop_trace,
+                                 register_hd1080_scene, replay_open_loop)
+from repro_torch.serving.workloads import (arrival_camera,  # noqa: E402
+                                           hd1080_plan, trajectory_cameras)
 
 N_REQUESTS = 3
 # Published peaks of one H100 SXM (data sheet, dense): HBM bandwidth and
@@ -1051,6 +1068,140 @@ def phase_scheduler(engine, name, single_wall_s: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4g: frame-coherent sessions
+# ---------------------------------------------------------------------------
+
+SESSION_FRAMES = 4
+DRIFT_STEP = 2 * math.pi / 262144
+COHERENCE_KEYS = ("tiles_reused", "tiles_recompacted", "full_recompactions")
+
+
+def session_cameras(width: int = 1920, height: int = 1088) -> dict:
+    """The three sessions' camera paths: one pose repeated, a drift of
+    2π/262144 a frame and the trajectory's default orbit of 2π/64."""
+    pose = hd1080_cameras(1, width=width, height=height)[0]
+    return {"static": [pose] * SESSION_FRAMES,
+            "drift": trajectory_cameras(SESSION_FRAMES, width=width,
+                                        height=height, step=DRIFT_STEP),
+            "orbit": trajectory_cameras(SESSION_FRAMES, width=width,
+                                        height=height)}
+
+
+def session_engine() -> tuple:
+    """An incremental engine on the hd1080 base plan (SPILL passes of 512,
+    `max_batch_for(1088, 1920)`), with the 512k scene registered."""
+    engine = RenderEngine(hd1080_plan(), device="cuda", incremental=True,
+                          max_batch=max_batch_for(1088, 1920),
+                          telemetry=Telemetry(registry=obs.MetricsRegistry()))
+    return engine, register_hd1080_scene(engine)
+
+
+def stage1_span(root) -> tuple:
+    """(stage name, ms) of the frame's Stage-1 span and the probe's ms
+    (the render_incremental wall outside its decision span)."""
+    inc, = root.find("render_incremental")
+    decision, = inc.children
+    frame, = decision.find("render")
+    s1 = [c for c in frame.children
+          if c.name in ("stage1_incremental", "stage1_compact")]
+    check(len(s1) == 1, "no single Stage-1 span under render")
+    return (s1[0].name, s1[0].wall_s * 1e3,
+            (inc.wall_s - decision.wall_s) * 1e3, frame.wall_s * 1e3)
+
+
+def phase_sessions(engine, name, sessions: dict) -> dict:
+    """Each session's frames in turn through an incremental engine: the
+    coherence counters, Stage-1 and frame walls per frame, one K1 and one
+    K2 launch a pass, each frame bit-equal to `render_with_stats`."""
+    scene = engine.scene(name)
+    height, width = sessions["static"][0].height, sessions["static"][0].width
+    t = engine.plan_for(name, height, width).grid.make().num_tiles
+    rows = {}
+    for session, cams in sessions.items():
+        prev = None
+        rows[session] = []
+        for i, cam in enumerate(cams):
+            req = RenderRequest(name, cam, request_id=i, session=session)
+            reset_launches()
+            with obs.use_tracer(obs.Tracer()) as tracer:
+                r, = engine.render_batch([req])
+            launches = check_launches(f"{session} frame {i}", r.passes_run)
+            c = {k: float(v) for k, v in r.counters.items()}
+            s1_name, s1_ms, probe_ms, render_ms = stage1_span(
+                tracer.roots[0])
+            plan = engine.plan_for(name, height, width)
+            want_out, want_c = plan.render_with_stats(
+                scene, cam.to(engine.device), enforce=False)
+            check(torch.equal(r.image, want_out.image)
+                  and torch.equal(r.alpha, want_out.alpha),
+                  f"{session} frame {i}: image or alpha differs from "
+                  "render_with_stats")
+            check(set(r.counters) - set(COHERENCE_KEYS) == set(want_c)
+                  and all(torch.equal(r.counters[k], want_c[k])
+                          for k in want_c),
+                  f"{session} frame {i}: counters differ from "
+                  "render_with_stats")
+            check(int(c["tiles_reused"]) + int(c["tiles_recompacted"]) == t,
+                  f"{session} frame {i}: tiles do not add up to {t}")
+            check(bool(torch.isfinite(r.image).all()), "non-finite pixels")
+            row = dict(frame=i, camera_delta=(
+                camera_delta(prev, cam) if prev is not None else None),
+                tiles_reused=int(c["tiles_reused"]),
+                tiles_recompacted=int(c["tiles_recompacted"]),
+                full_recompactions=int(c["full_recompactions"]),
+                stage1=s1_name, stage1_ms=s1_ms, probe_ms=probe_ms,
+                render_ms=render_ms, frame_ms=r.render_s * 1e3,
+                passes_run=r.passes_run, spill_passes=c["spill_passes"],
+                launches=launches)
+            rows[session].append(row)
+            delta = ("cold" if prev is None
+                     else f"{row['camera_delta']:.3g}")
+            log(f"[sessions] {session} frame {i}: camera delta {delta}, "
+                f"reused {row['tiles_reused']} / recompacted "
+                f"{row['tiles_recompacted']} of {t} tiles, full "
+                f"{row['full_recompactions']}; {s1_name} {s1_ms:.1f} ms, "
+                f"probe {probe_ms:.1f} ms, render {render_ms:.1f} ms, frame "
+                f"{row['frame_ms']:.1f} ms; {r.passes_run} passes, launches "
+                f"{launches}; bit-equal to render_with_stats")
+            prev = cam
+    for row in rows["static"][1:]:
+        check(row["tiles_reused"] == t and row["full_recompactions"] == 0,
+              f"static frame {row['frame']} reused {row['tiles_reused']} "
+              f"of {t} tiles")
+    for row in rows["orbit"]:
+        check(row["full_recompactions"] == 1,
+              f"orbit frame {row['frame']} did not fall back")
+    # The probe's two parts on the static pose, CUDA events around 10
+    # back-to-back calls (the fingerprint's nonzero syncs the host).
+    cam = sessions["static"][0].to(engine.device)
+    grid = engine.plan_for(name, height, width).grid.make()
+    proj = project(scene, cam)
+    probe = dict(project_ms=time_ms(lambda: project(scene, cam), 10),
+                 fingerprint_ms=time_ms(
+                     lambda: tile_fingerprints(proj, grid), 10))
+    log(f"[sessions] probe parts on the static pose: project "
+        f"{probe['project_ms']:.2f} ms, tile_fingerprints "
+        f"{probe['fingerprint_ms']:.2f} ms")
+    full_ms = [r["stage1_ms"] for rs in rows.values() for r in rs
+               if r["stage1"] == "stage1_compact"]
+    static_ms = [r["stage1_ms"] for r in rows["static"][1:]]
+    log(f"[sessions] static frames 1-3 Stage 1 {[round(x, 1) for x in static_ms]} "
+        f"ms against the full path's stage1_compact "
+        f"{[round(x, 1) for x in full_ms]} ms")
+    tele = engine.telemetry
+    log(f"[sessions] telemetry totals: reused {tele.total_tiles_reused}, "
+        f"recompacted {tele.total_tiles_recompacted}, full "
+        f"{tele.total_full_recompactions}; session evictions "
+        f"{engine.session_evictions}, spill retries {engine.spill_retries}")
+    return dict(tiles=t, sessions=rows, probe=probe,
+                static_stage1_ms=static_ms,
+                full_stage1_ms=full_ms,
+                totals=dict(reused=tele.total_tiles_reused,
+                            recompacted=tele.total_tiles_recompacted,
+                            full=tele.total_full_recompactions))
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the 1024² dense-oracle point
 # ---------------------------------------------------------------------------
 
@@ -1364,6 +1515,18 @@ def offpath_only(summary: dict, json_path) -> int:
     return 0
 
 
+def sessions_only(summary: dict, json_path) -> int:
+    """Phase 4g alone: the three sessions on a fresh incremental engine.
+    Prints the card line and the contract's last line."""
+    engine, name = session_engine()
+    summary["sessions"] = timed_phase("sessions", phase_sessions, engine,
+                                      name, session_cameras())
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
 def ok_line() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1380,6 +1543,9 @@ def main() -> int:
     parser.add_argument("--offpath-only", action="store_true",
                         help="run only the build, the p1024 setup, K4 "
                         "(phase 6a) and K3 on the p1024 lists")
+    parser.add_argument("--sessions-only", action="store_true",
+                        help="run only the build and phase 4g (three "
+                        "frame-coherent sessions at 1920x1088)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1398,6 +1564,8 @@ def main() -> int:
         return passes_only(summary, args.json)
     if args.offpath_only:
         return offpath_only(summary, args.json)
+    if args.sessions_only:
+        return sessions_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -1446,6 +1614,11 @@ def main() -> int:
     launches = dict(summary["serve"]["launches"],
                     prtu_cat_mask=dvs["launches"]["prtu_cat_mask"],
                     blend_tiles=summary["unfused"]["launches"])
+    del dvs, pt
+    torch.cuda.empty_cache()
+    engine, name = session_engine()
+    summary["sessions"] = timed_phase("sessions", phase_sessions, engine,
+                                      name, session_cameras())
 
     kernels = []
     csrc = "src/repro_torch/kernels/csrc/"

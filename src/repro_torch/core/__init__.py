@@ -20,6 +20,9 @@ from repro_torch.core.renderer import (GridConfig, OverflowPolicy,
                                        TileStream, cat_mask_elems,
                                        frame_counters, measure_k_max)
 from repro_torch.core.metrics import psnr
+from repro_torch.core.coherence import (CoherenceConfig, FrameCache,
+                                        camera_delta, render_incremental,
+                                        tile_fingerprints)
 from repro_torch.core.pipeline import (FLICKER_CONFIG, GSCORE_CONFIG,
                                        VANILLA_CONFIG, RenderConfig,
                                        render_batch_with_stats)
@@ -37,7 +40,8 @@ __all__ = [
     "RasterConfig", "RenderPlan", "Renderer", "StreamConfig",
     "StreamOverflowError", "StreamOverflowWarning", "TestConfig",
     "TileStream", "cat_mask_elems", "frame_counters", "measure_k_max",
-    "psnr",
+    "psnr", "CoherenceConfig", "FrameCache", "camera_delta",
+    "render_incremental", "tile_fingerprints",
     "FULL_FP16", "FULL_FP32", "FULL_FP8", "MIXED", "PrecisionScheme",
     "FLICKER_CONFIG", "GSCORE_CONFIG", "VANILLA_CONFIG", "RenderConfig",
     "render_batch_with_stats",

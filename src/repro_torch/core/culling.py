@@ -146,16 +146,11 @@ class TileGrid:
                 + origins[:, 0] // self.subtile)
 
 
-def tile_divisor_chunk(t: int, per_tile_elems: int, limit: int) -> int:
-    """Largest divisor of `t` whose chunk holds <= `limit` elements (min 1).
-    Bounds the live working set of per-tile computations."""
-    if t * per_tile_elems <= limit:
-        return t
-    best = 1
-    for d in range(2, t + 1):
-        if t % d == 0 and d * per_tile_elems <= limit:
-            best = d
-    return best
+def tile_chunk(t: int, per_tile_elems: int, limit: int) -> int:
+    """Tiles per chunk of a per-tile computation over `t` tiles: as many as
+    hold <= `limit` elements, at least 1 and at most `t`; the last chunk
+    may be shorter. Bounds the live working set."""
+    return max(1, min(t, limit // max(per_tile_elems, 1)))
 
 
 REGION_CHUNK_ELEMS = 1 << 27   # bound on (regions × Gaussians) pairs a

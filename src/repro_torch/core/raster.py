@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.gaussians import Projected, ALPHA_MIN
-from repro_torch.core.culling import TileGrid, aabb_mask, tile_divisor_chunk
+from repro_torch.core.culling import TileGrid, aabb_mask, tile_chunk
 
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
@@ -81,9 +81,10 @@ def _compact_passes(mask_of_block, block_operand: torch.Tensor, t: int,
     """Tile-chunk loop + pass-splitting layout for the compactions.
 
     mask_of_block(block_operand[chunk]) -> (chunk, N) bool Stage-1 mask in
-    depth order. Returns (lists (passes, T, K), valid (passes, T, K),
-    overflow ())."""
-    chunk = tile_divisor_chunk(t, n, COMPACT_CHUNK_ELEMS)
+    depth order. The last chunk may be shorter, so any tile count (a
+    frame's changed tiles, `core.coherence`) takes ceil(T / chunk) steps.
+    Returns (lists (passes, T, K), valid (passes, T, K), overflow ())."""
+    chunk = tile_chunk(t, n, COMPACT_CHUNK_ELEMS)
     parts = [_compact_block(mask_of_block(block_operand[s:s + chunk]),
                             order, k_max, passes)
              for s in range(0, t, chunk)]

@@ -68,7 +68,7 @@ import torch
 
 from repro_torch.core.gaussians import GaussianScene, Projected, project, \
     classify_spiky
-from repro_torch.core.culling import TileGrid, aabb_mask, tile_divisor_chunk
+from repro_torch.core.culling import TileGrid, aabb_mask, tile_chunk
 from repro_torch.core.cat import SamplingMode
 from repro_torch.core import hierarchy as H
 from repro_torch.core import raster
@@ -408,6 +408,22 @@ class RenderPlan:
         out, _ = self.render_with_stats(scene, camera)
         return out
 
+    def render_incremental(self, scene: GaussianScene, camera, cache=None,
+                           cfg=None, **kw):
+        """Frame-coherent render: reuse the previous frame's per-tile
+        survivor streams for every tile whose Stage-1 candidate set is
+        provably unchanged, recompacting only the rest (bit-identical to
+        `render_with_stats`; see `core.coherence`).
+
+        cache: the `coherence.FrameCache` returned by the previous call
+        (None = cold start, a full recompaction that seeds one).
+        cfg: a `coherence.CoherenceConfig` (fallback thresholds).
+        Returns (RenderOut, counters, FrameCache).
+        """
+        from repro_torch.core import coherence
+        return coherence.render_incremental(self, scene, camera, cache=cache,
+                                            cfg=cfg, **kw)
+
     def render_batch_with_stats(self, scene: GaussianScene, cameras, *,
                                 enforce: bool = True):
         """Render B camera poses of one scene: preprocess and Stage 1 per
@@ -635,6 +651,11 @@ class Renderer:
     def render_with_stats(self, scene: GaussianScene, camera):
         return self.plan.render_with_stats(scene, camera)
 
+    def render_incremental(self, scene: GaussianScene, camera, cache=None,
+                           cfg=None, **kw):
+        return self.plan.render_incremental(scene, camera, cache=cache,
+                                            cfg=cfg, **kw)
+
     def render_batch_with_stats(self, scene: GaussianScene, cameras):
         return self.plan.render_batch_with_stats(scene, cameras)
 
@@ -699,7 +720,7 @@ def measure_k_max(scene: GaussianScene, cameras, *,
         proj = project(scene, cam)
         t, n = g.num_tiles, proj.depth.shape[0]
         origins = g.tile_origins(proj.depth.device)
-        chunk = tile_divisor_chunk(t, n, COMPACT_CHUNK_ELEMS)
+        chunk = tile_chunk(t, n, COMPACT_CHUNK_ELEMS)
         for s in range(0, t, chunk):
             counts = aabb_mask(proj, origins[s:s + chunk], g.tile).sum(dim=1)
             longest = max(longest, int(counts.max()))

@@ -3,7 +3,8 @@
     engine     — RenderEngine: scene registry (probe-driven k_max) +
                  RenderPlan-keyed plan cache + batched rendering (one K1
                  and one K2 launch per pass for a batch) + per-batch
-                 OverflowPolicy enforcement
+                 OverflowPolicy enforcement + sticky frame-coherent
+                 sessions (`incremental=True`, `RenderRequest.session`)
     scheduler  — deadline-aware continuous batching: priority tiers +
                  EDF dispatch, EWMA wall prediction, admission control
                  with resolution-fallback degrade / reject

@@ -45,10 +45,16 @@ class MicroBatcher:
         """The underlying continuous-batching scheduler."""
         return self._sched
 
-    def submit(self, scene: str, camera: Camera) -> Future:
-        """Enqueue one request; returns a Future[RequestResult]."""
-        return self._sched.submit(scene, camera, tier=Tier.BATCH,
-                                  deadline_s=None)
+    def submit(self, scene: str, camera: Camera,
+               session: Optional[str] = None) -> Future:
+        """Enqueue one request; returns a Future[RequestResult].
+
+        session: opaque client-stream id for the engine's frame-coherent
+        incremental mode (`RenderEngine(incremental=True)`). Sessioned and
+        sessionless requests group into the same (scene, resolution) batch
+        window; the engine splits them at render time."""
+        return self._sched.submit(scene, camera, session=session,
+                                  tier=Tier.BATCH, deadline_s=None)
 
     @property
     def pending(self) -> int:

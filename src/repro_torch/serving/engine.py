@@ -42,9 +42,20 @@ to a power of two. A batch that still exhausts its spill capacity
 (off-probe traffic) is re-rendered with a doubled pass bucket, which sticks
 for the scene, so SPILL frames never report `FrameResult.overflow`.
 
+Sessions: on an engine built with `incremental=True`, requests that carry
+a `session` id render one at a time through the frame-coherent path
+(`core.coherence.render_incremental`) with a sticky per-session
+`FrameCache`, which reuses the previous frame's survivor streams for the
+tiles whose candidate set did not change; the frame stays bit-identical to
+the batched path's full recompaction. Sessionless requests keep the
+batched path. Each cache holds the frame's rows and valid bits, at
+1920×1088 with 16 SPILL passes of 512 about 8160 × 8192 × 5 bytes = 334 MB
+on the device, so the default `max_sessions = 64` may pin about 21 GB:
+size `max_sessions` to the device.
+
 The engine runs on `torch.device("cuda")` unless it is given another
-device, and raises if CUDA is asked for and absent. Incremental sessions,
-LOD scenes and multi-device meshes are not ported yet.
+device, and raises if CUDA is asked for and absent. LOD scenes and
+multi-device meshes are not ported yet.
 """
 from __future__ import annotations
 
@@ -80,10 +91,18 @@ def batch_bucket(n: int, max_batch: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class RenderRequest:
-    """One camera pose against one registered scene."""
+    """One camera pose against one registered scene.
+
+    session: opaque client-stream id. On an engine built with
+    `incremental=True`, requests carrying a session render through the
+    frame-coherent path (`core.coherence`): the engine keeps one
+    `FrameCache` per session and reuses the previous frame's survivor
+    streams for unchanged tiles, bit-identical to the batched path's full
+    recompaction. Sessionless requests batch as before."""
     scene: str
     camera: Camera
     request_id: int = -1
+    session: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +175,21 @@ class RenderEngine:
     jit_cache_size: LRU capacity of the plan cache; past it the
         oldest-hit plan is evicted.
     max_scenes: LRU capacity of the scene registry (None = unbounded);
-        least-recently-served scenes are evicted past it.
+        least-recently-served scenes are evicted past it, and the frame
+        caches of their sessions with them.
+    incremental: opt into the frame-coherent serving mode: requests that
+        carry a `session` id render through `core.coherence` with a sticky
+        per-session `FrameCache`; sessionless requests batch as before, so
+        one batch window can mix both. Telemetry gains the per-frame
+        `tiles_reused` / `tiles_recompacted` / `full_recompactions`
+        counters and their lifetime totals.
+    coherence: a `core.CoherenceConfig` for the incremental mode's
+        fallback thresholds (None = defaults).
+    max_sessions: LRU capacity of the per-session frame caches. The
+        least-recently-served session past it is evicted (its next frame
+        pays one full recompaction, like a cold cache);
+        `engine_session_evictions_total` counts these evictions and those
+        of sessions whose scene left the registry.
     """
 
     def __init__(self,
@@ -167,8 +200,11 @@ class RenderEngine:
                  overflow: Union[OverflowPolicy, str, None] = None,
                  fused: Optional[bool] = None,
                  dataflow: Optional[str] = None,
+                 incremental: bool = False,
+                 coherence=None,
                  jit_cache_size: int = 64,
-                 max_scenes: Optional[int] = None):
+                 max_scenes: Optional[int] = None,
+                 max_sessions: int = 64):
         plan = _as_plan(base)
         if fused is not None:
             plan = dataclasses.replace(
@@ -186,6 +222,9 @@ class RenderEngine:
                              f"got {jit_cache_size}")
         if max_scenes is not None and max_scenes < 1:
             raise ValueError(f"max_scenes must be >= 1, got {max_scenes}")
+        if max_sessions < 1:
+            raise ValueError(f"max_sessions must be >= 1, "
+                             f"got {max_sessions}")
         self.plan = plan
         self.device = _resolve_device(device)
         self.max_batch = max_batch
@@ -202,6 +241,17 @@ class RenderEngine:
         # whenever a SPILL batch exhausts its capacity.
         self._spill_boost: dict[str, int] = {}
         self.spill_retries = 0
+        self.incremental = incremental
+        self.coherence = coherence
+        self.max_sessions = max_sessions
+        # Sticky per-session frame caches, LRU-bounded by max_sessions;
+        # `_session_scene` records the scene each session last rendered, so
+        # that evicting a scene drops the caches holding its streams. Scene
+        # swaps and plan changes invalidate a cache inside
+        # `render_incremental`, not here.
+        self._frame_caches: OrderedDict[str, object] = OrderedDict()
+        self._session_scene: dict[str, str] = {}
+        self.session_evictions = 0
 
     # -- registry -----------------------------------------------------------
 
@@ -235,12 +285,26 @@ class RenderEngine:
                     "engine_scene_evictions_total",
                     "Scenes evicted from the registry (LRU past max_scenes)"
                 ).inc()
+                for sid in [s for s, sc in self._session_scene.items()
+                            if sc == old]:
+                    self._evict_session(sid)
         reg.gauge("engine_scene_k_max", "Per-scene Stage-1 list capacity "
                   "(probe-measured or given; scene bucket when defaulted)",
                   ("scene",)).set(entry.k_max, scene=name)
         reg.gauge("engine_scene_gaussians", "Registered (real) Gaussian "
                   "count per scene", ("scene",)).set(entry.n_real, scene=name)
         return entry
+
+    def _evict_session(self, session: str):
+        """Drop one session's frame cache (LRU bound or scene eviction)."""
+        self._frame_caches.pop(session, None)
+        self._session_scene.pop(session, None)
+        self.session_evictions += 1
+        self.telemetry.registry.counter(
+            "engine_session_evictions_total",
+            "Incremental-session frame caches evicted (LRU past "
+            "max_sessions, or their scene left the registry); the "
+            "session's next frame pays one full recompaction").inc()
 
     def scene(self, name: str) -> GaussianScene:
         """The registered (padded, on-device) scene."""
@@ -319,9 +383,15 @@ class RenderEngine:
     def render_batch(self, requests: Sequence[RenderRequest]
                      ) -> list[FrameResult]:
         """Render a homogeneous batch (one scene, one resolution, at most
-        `max_batch` requests) in one batched render, results in request
-        order. Use `serving.batching.MicroBatcher` or
-        `serving.scheduler.Scheduler` to group mixed traffic."""
+        `max_batch` requests), results in request order. Use
+        `serving.batching.MicroBatcher` or `serving.scheduler.Scheduler` to
+        group mixed traffic.
+
+        Sessionless requests render in one batched render. On an
+        incremental engine, requests carrying a session id peel off to the
+        frame-coherent path (one `core.coherence` render each, in request
+        order, so consecutive frames of a session advance its cache even
+        within one batch window); each request is served exactly once."""
         requests = list(requests)
         if not requests:
             return []
@@ -339,7 +409,22 @@ class RenderEngine:
         if len(requests) > self.max_batch:
             raise ValueError(f"batch of {len(requests)} exceeds max_batch="
                              f"{self.max_batch}; split it upstream")
-        return self._render_batched(requests, name, height, width)
+        coherent = ([i for i, r in enumerate(requests)
+                     if r.session is not None]
+                    if self.incremental else [])
+        if not coherent:
+            return self._render_batched(requests, name, height, width)
+        results: dict[int, FrameResult] = {}
+        plain = [i for i in range(len(requests))
+                 if requests[i].session is None]
+        if plain:
+            for i, fr in zip(plain, self._render_batched(
+                    [requests[i] for i in plain], name, height, width)):
+                results[i] = fr
+        for i in coherent:
+            results[i] = self._render_incremental_one(
+                requests[i], name, height, width)
+        return [results[i] for i in range(len(requests))]
 
     def _render_batched(self, requests: Sequence[RenderRequest], name: str,
                         height: int, width: int) -> list[FrameResult]:
@@ -410,3 +495,78 @@ class RenderEngine:
                         overflow=bool(frame_overflow[i]))
             for i, r in enumerate(requests)
         ]
+
+    def _render_incremental_one(self, request: RenderRequest, name: str,
+                                height: int, width: int) -> FrameResult:
+        """Serve one sessioned frame through the frame-coherent path.
+
+        The session's `FrameCache` is looked up (and stored back) under the
+        request's session id; a scene swap or plan change (including a
+        SPILL pass-bucket double) invalidates it by value inside
+        `core.coherence.render_incremental`, which then serves a full
+        recompaction that re-seeds it. The SPILL retry loop mirrors the
+        batched path, so incremental SPILL frames never ship clamped
+        either. Telemetry records the frame once (a batch of 1), with the
+        coherence counters attached.
+        """
+        from repro_torch.core import coherence as coh
+        entry = self._entry(name)
+        camera = request.camera.to(self.device)
+        tracer = obs_trace.current()
+        retries = passes_run = 0
+        t0 = time.perf_counter()
+        with tracer.span("engine.render_incremental",
+                         {"scene": name, "session": request.session,
+                          "res": f"{width}x{height}"}) as span:
+            while True:
+                plan = self.plan_for(name, height, width)
+                cache = self._frame_caches.get(request.session)
+                out, counters, cache = coh.render_incremental(
+                    plan, entry.scene, camera, cache, self.coherence,
+                    enforce=False)
+                self._frame_caches[request.session] = cache
+                self._frame_caches.move_to_end(request.session)
+                self._session_scene[request.session] = name
+                while len(self._frame_caches) > self.max_sessions:
+                    self._evict_session(next(iter(self._frame_caches)))
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                passes_run += plan.n_passes
+                overflow = bool(out.overflow)
+                spill = plan.stream.overflow is OverflowPolicy.SPILL
+                capacity = plan.stream.k_max * plan.stream.max_spill_passes
+                if overflow and spill and capacity < entry.n_bucket:
+                    self._spill_boost[name] = \
+                        2 * self._spill_boost.get(name, 1)
+                    self.spill_retries += 1
+                    retries += 1
+                    continue
+                break
+            dt = time.perf_counter() - t0
+            if tracer.enabled:
+                span.set(retries=retries, overflow=overflow, wall_s=dt,
+                         tiles_reused=float(counters["tiles_reused"]),
+                         tiles_recompacted=float(
+                             counters["tiles_recompacted"]),
+                         full_recompaction=bool(
+                             float(counters["full_recompactions"])))
+
+        counters = dict(counters)
+        if "n_gaussians" in counters:   # report the real count, like the
+            counters["n_gaussians"] = torch.tensor(   # batched path
+                float(entry.n_real), device=self.device)
+        self.telemetry.record_batch(batch_size=1, bucket_size=1,
+                                    latency_s=dt, counters=counters,
+                                    height=height, width=width,
+                                    overflow_frames=int(overflow),
+                                    spill_retries=retries)
+        if overflow:
+            enforce_overflow_policy(
+                True, plan.stream.overflow, k_max=plan.stream.k_max,
+                n_passes=plan.n_passes,
+                context=f"incremental session {request.session!r} of scene "
+                        f"{name!r} at {height}x{width}")
+        return FrameResult(
+            request=request, image=out.image, alpha=out.alpha,
+            counters=counters, batch_size=1, bucket_size=1, render_s=dt,
+            passes_run=passes_run, overflow=overflow)

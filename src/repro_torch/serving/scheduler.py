@@ -37,8 +37,10 @@ blowing p99. `Scheduler` is that layer:
 `MicroBatcher` (serving.batching) remains as a thin compat shim over this
 scheduler: deadline-free BATCH-tier submissions reduce EDF to FIFO and
 never trip admission control, so its `flush()` semantics — grouping,
-chunk order, futures, failure handling — are unchanged. The port serves no
-incremental sessions yet, so `submit` takes no `session`.
+chunk order, futures, failure handling — are unchanged. A `session` id
+given to `submit` rides on the request: sessioned and sessionless requests
+share a (scene, resolution) dispatch and the engine splits them at render
+time (`RenderEngine(incremental=True)`).
 
 The scheduler is synchronous and single-threaded like the batcher it
 replaces: `step()` renders one dispatch on the caller's thread, `flush()`
@@ -288,7 +290,8 @@ class Scheduler:
 
     def submit(self, scene: str, camera: Camera, *,
                deadline_s: Optional[float] = None,
-               tier: Optional[Tier] = None) -> Future:
+               tier: Optional[Tier] = None,
+               session: Optional[str] = None) -> Future:
         """Enqueue one request; returns a Future[RequestResult].
 
         deadline_s: latency budget relative to now. None (after the
@@ -296,6 +299,8 @@ class Scheduler:
         as a miss. A request whose predicted wait already exceeds the
         budget is degraded to a registered fallback resolution or has its
         future failed with `AdmissionRejected` *now*, not after queueing.
+        session: opaque client-stream id for the engine's frame-coherent
+        mode (`RenderEngine(incremental=True)`).
         """
         tier = self.default_tier if tier is None else Tier(tier)
         if deadline_s is None:
@@ -311,7 +316,7 @@ class Scheduler:
         if degraded:
             self.degraded += 1
         req = RenderRequest(scene=scene, camera=camera,
-                            request_id=self._next_seq)
+                            request_id=self._next_seq, session=session)
         self._queue.append(_Job(
             request=req, future=fut, tier=tier, t_submit=now,
             t_deadline=(now + deadline_s if deadline_s is not None

@@ -73,6 +73,12 @@ class Telemetry:
         self.total_batches = 0
         self.total_overflow_frames = 0
         self.total_spill_retries = 0
+        # Frame-coherence lifetime totals (incremental serving mode): summed
+        # from the per-frame tiles_reused / tiles_recompacted /
+        # full_recompactions counters whenever a batch carries them.
+        self.total_tiles_reused = 0
+        self.total_tiles_recompacted = 0
+        self.total_full_recompactions = 0
         # Request-level accounting (scheduler traffic): lifetime totals and
         # a rolling per-tier latency window for snapshot percentiles.
         self.total_requests = 0
@@ -119,7 +125,20 @@ class Telemetry:
         self.total_batches += 1
         self.total_overflow_frames += overflow_frames
         self.total_spill_retries += spill_retries
-        self._publish(rec, height, width)
+        # Coherence counters sum exactly over the batch's real frames; the
+        # same integers feed the lifetime attributes and the registry
+        # counters, so the two views cannot drift.
+        coherence_exact = {
+            k: int(round(float(c[k].sum())))
+            for k in ("tiles_reused", "tiles_recompacted",
+                      "full_recompactions") if k in c
+        }
+        self.total_tiles_reused += coherence_exact.get("tiles_reused", 0)
+        self.total_tiles_recompacted += \
+            coherence_exact.get("tiles_recompacted", 0)
+        self.total_full_recompactions += \
+            coherence_exact.get("full_recompactions", 0)
+        self._publish(rec, height, width, coherence_exact)
         return rec
 
     def record_request(self, *, tier: str, queue_s: float, total_s: float,
@@ -173,7 +192,8 @@ class Telemetry:
             )
         return out
 
-    def _publish(self, rec: BatchRecord, height: int, width: int):
+    def _publish(self, rec: BatchRecord, height: int, width: int,
+                 coherence_exact: Optional[dict] = None):
         """Mirror the batch into the metrics registry (lifetime view)."""
         reg, res = self.registry, f"{width}x{height}"
         reg.counter("render_batches_total", "Batches rendered",
@@ -198,6 +218,19 @@ class Telemetry:
             reg.gauge("render_spill_passes",
                       "Mean spill passes used by the most recent batch"
                       ).set(rec.counters["spill_passes"])
+        for key, mname, help_ in (
+                ("tiles_reused", "render_tiles_reused_total",
+                 "Stage-1 tile compactions skipped by the frame-coherent "
+                 "incremental mode (survivor streams reused)"),
+                ("tiles_recompacted", "render_tiles_recompacted_total",
+                 "Tiles whose candidate set changed and were recompacted"),
+                ("full_recompactions", "render_full_recompactions_total",
+                 "Incremental frames that fell back to a full recompaction "
+                 "(cold cache, camera jump, or changed-tile fraction)")):
+            if coherence_exact is not None and key in coherence_exact:
+                # The exact per-batch integer sums the lifetime total_*
+                # attributes accumulate.
+                reg.counter(mname, help_).inc(coherence_exact[key])
 
     def snapshot(self) -> dict:
         """Fold the window into a stats dict (all python scalars)."""
@@ -209,6 +242,10 @@ class Telemetry:
                         total_overflow_frames=self.total_overflow_frames,
                         spill_passes=0.0, spill_retries=0,
                         total_spill_retries=self.total_spill_retries,
+                        total_tiles_reused=self.total_tiles_reused,
+                        total_tiles_recompacted=self.total_tiles_recompacted,
+                        total_full_recompactions=(
+                            self.total_full_recompactions),
                         tiers=self.tier_snapshot(),
                         total_requests=self.total_requests,
                         total_deadline_misses=self.total_deadline_misses,
@@ -245,6 +282,9 @@ class Telemetry:
             spill_passes=agg.get("spill_passes", 0.0),
             spill_retries=sum(r.spill_retries for r in recs),
             total_spill_retries=self.total_spill_retries,
+            total_tiles_reused=self.total_tiles_reused,
+            total_tiles_recompacted=self.total_tiles_recompacted,
+            total_full_recompactions=self.total_full_recompactions,
             tiers=self.tier_snapshot(),
             total_requests=self.total_requests,
             total_deadline_misses=self.total_deadline_misses,

@@ -123,9 +123,9 @@ def open_loop_trace(n_requests: int, *, seed: int = 0,
 
     Same seed -> the same trace (`np.random.default_rng` streams are
     versioned), equal to the reference's. Sessioned requests (when
-    `n_sessions` > 0) walk a smooth per-session orbit; sessionless ones get
-    an independent random pose each. The port serves no sessions yet: a
-    replay serves a sessioned arrival like any other.
+    `n_sessions` > 0) walk a smooth per-session orbit, so an incremental
+    engine sees coherent streams; sessionless ones get an independent
+    random pose each.
     """
     rng = np.random.default_rng(seed)
     gaps = rng.exponential(1.0, size=n_requests)
@@ -196,7 +196,8 @@ def replay_open_loop(scheduler, trace: Sequence[Arrival], *,
             else:
                 time.sleep(min(due - now, 5e-4))
         out.append((a, scheduler.submit(
-            a.scene, camera, deadline_s=a.deadline_s, tier=tiers[a.tier])))
+            a.scene, camera, deadline_s=a.deadline_s, tier=tiers[a.tier],
+            session=a.session)))
     scheduler.flush()
     return out
 
@@ -231,6 +232,18 @@ def register_hd1080_scene(engine: RenderEngine,
     return name
 
 
+def hd1080_plan(k_max_pass: int = 512) -> RenderPlan:
+    """The 1080p serving plan: SPILL passes of `k_max_pass` entries on the
+    CUDA CTU (K1) and the fused blend (K2)."""
+    return RenderPlan(
+        test=TestConfig(backend="cuda"),
+        # The pass count comes from the probed survivor bound per scene;
+        # 8 passes is only the budget of a scene registered unprobed.
+        stream=StreamConfig(k_max=k_max_pass, overflow=OverflowPolicy.SPILL,
+                            max_spill_passes=8),
+        raster=RasterConfig(fused=True))
+
+
 def hd1080_engine(n_gaussians: int = HD1080_GAUSSIANS, *,
                   k_max_pass: int = 512, width: int = HD1080_WIDTH,
                   height: int = HD1080_HEIGHT, device="cuda",
@@ -241,14 +254,8 @@ def hd1080_engine(n_gaussians: int = HD1080_GAUSSIANS, *,
     `max_batch_for(height, width)` frames (2 at 1920×1088), with the HD
     scene registered. `width`/`height`/`n_gaussians` shrink it for tests.
     Returns (engine, scene_name)."""
-    base = RenderPlan(
-        test=TestConfig(backend="cuda"),
-        # The pass count comes from the probed survivor bound per scene;
-        # 8 passes is only the budget of a scene registered unprobed.
-        stream=StreamConfig(k_max=k_max_pass, overflow=OverflowPolicy.SPILL,
-                            max_spill_passes=8),
-        raster=RasterConfig(fused=True))
-    engine = RenderEngine(base, device=device, telemetry=telemetry,
+    engine = RenderEngine(hd1080_plan(k_max_pass), device=device,
+                          telemetry=telemetry,
                           max_batch=max_batch_for(height, width))
     name = register_hd1080_scene(engine, n_gaussians, width=width,
                                  height=height)
