@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--passes-only | --offpath-only]
+    python3 chip_smoke.py [--json PATH] [--passes-only | --offpath-only |
+                          --sessions-only | --lod-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -93,13 +94,38 @@ Phases, in order:
      counter but the three coherence ones bit-equal to
      `render_with_stats` of the same pose on the same plan. `static`
      frames 1-3 reuse every tile, `orbit` frames all fall back
+  7. runs after 4g: camera-dependent LOD at the reference's full LOD rung
+     (benchmarks/scaling.py:396-415): 4,194,304 Gaussians drawn from
+     torch.Generator("cuda").manual_seed(1 << 22), a 512² serve camera at
+     fov 32°, three 128² probes, LODConfig(num_clusters=4096, ...). The
+     scene goes through `save_ply` -> `load_ply` under build/lod/ first
+     (means, scales, quats, opacity bit-equal, colors within 1e-6), and
+     the loaded scene is used below.
+     a. k-means and probe scoring timed apart, then `build_lod` twice
+        from one generator seed: the two builds bit-equal;
+     b. the served LOD frame against the full frame, each on the hd1080
+        plan at 512² with the pass count of its measured bound
+        (`measure_lod_k_max`, `measure_k_max`): clusters and Gaussians
+        selected, ratio < 1, bucket, k_max and passes, the `stage0_lod`
+        span wall, warm frame walls, stage walls and device-busy ms of
+        both, PSNR >= 30 dB and SSIM, peak memory, K1 and K2 once a pass;
+     c. select-all (no footprint or mass test): every tile whose lists
+        hold the same Gaussians in the same order renders bit-equal to the
+        full frame; the tiles whose lists differ by a depth tie the
+        build's reorder swapped are counted and printed;
+     d. a fresh engine on the hd1080 plan at 512² (max_batch 2):
+        `register_scene(lod=...)` over three 512² poses, one batch of two
+        requests (K1 and K2 once a pass of the batch), the lod_* counters
+        and gauges, each frame >= 30 dB against its full render, and the
+        same batch again a plan-cache hit, bit-identical
   5. one {"kernels": [...]} line, the card line, and as the last line
      {"ok": true, "device": {...}}
 
 Exits non-zero without printing a result when CUDA is unavailable or any
 phase fails. `--json PATH` also writes every measurement to PATH.
 `--passes-only` runs phases 1 and 4c alone and prints their sums as its
-last line; `--sessions-only` runs phases 1 and 4g; `--offpath-only` runs phase 1, the 1024² setup, phase 6a and
+last line; `--sessions-only` runs phases 1 and 4g; `--lod-only` runs
+phases 1 and 7; `--offpath-only` runs phase 1, the 1024² setup, phase 6a and
 K3 on the 1024² frame's lists, and prints their times on the line before
 the card line and the contract's last line. A copy of this script placed
 at the root of another commit's tree (`git archive`) times that commit's
@@ -140,8 +166,16 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.core import (FULL_FP32, MIXED, GridConfig,  # noqa: E402
                               RasterConfig, RenderPlan, Renderer,
                               StreamConfig, TestConfig, default_camera,
-                              measure_k_max, project, psnr, random_scene,
+                              load_ply, measure_k_max, orbit_camera,
+                              project, psnr, random_scene, save_ply, ssim,
                               tile_fingerprints)
+from repro_torch.core.clustering import kmeans_clusters  # noqa: E402
+from repro_torch.core.pruning import contribution_scores  # noqa: E402
+from repro_torch.core.renderer import next_pow2  # noqa: E402
+from repro_torch.lod import (LODConfig, build_lod,  # noqa: E402
+                             gather_subscene, measure_lod_k_max,
+                             select_clusters, selected_members,
+                             selection_bucket_for)
 from repro_torch.core.cat import leader_corners  # noqa: E402
 from repro_torch.core.hierarchy import count_true  # noqa: E402
 from repro_torch.core.raster import entry_mask_from_dense, untile  # noqa: E402
@@ -581,15 +615,30 @@ def serve_in_batches(engine, requests) -> list:
             for i in range(0, len(requests), step)]
 
 
-def plain_render(engine, name, cam):
-    """The all-"torch" plan's render of `cam` on the engine's scene (the
-    plain versions of K1 and K2 on the card)."""
-    plan = engine.plan_for(name, cam.height, cam.width)
-    plain = Renderer.from_plan(plan).replace(
+def plain_renderer(plan) -> Renderer:
+    """`plan` with the all-"torch" backend and the unfused blend: the plain
+    versions of K1 and K2 on the card, everything else the same."""
+    return Renderer.from_plan(plan).replace(
         test=TestConfig(backend="torch"), raster=RasterConfig())
-    out, _ = plain.render_with_stats(engine.scene(name),
-                                     cam.to(engine.device))
+
+
+def plain_render(engine, name, cam):
+    """The all-"torch" plan's render of `cam` on the engine's scene."""
+    plan = engine.plan_for(name, cam.height, cam.width)
+    out, _ = plain_renderer(plan).render_with_stats(engine.scene(name),
+                                                    cam.to(engine.device))
     return out
+
+
+def held_to_plain(got, want, label: str) -> float:
+    """Max |Δ| of image and alpha between a frame through K1 and K2 and the
+    plain plan's frame of the same inputs; fails above 2e-4 (phase 4's
+    tolerance)."""
+    err = max(float((got.image - want.image).abs().max()),
+              float((got.alpha - want.alpha).abs().max()))
+    check(err <= 2e-4, f"{label}: frame differs from the plain plan's by "
+          f"{err} (> 2e-4)")
+    return err
 
 
 def phase_serve(engine, name) -> dict:
@@ -649,23 +698,25 @@ def phase_serve(engine, name) -> dict:
 # Phase 4b: where a request's time goes
 # ---------------------------------------------------------------------------
 
+def sync_wall_ms(fn):
+    """(result, ms) of `fn`, device-synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def stage_walls(plan, scene, cam, label: str) -> dict:
     """Stage walls in ms of one warm frame of `plan`, device-synchronized
     around each stage."""
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     plan.render_with_stats(scene, cam, enforce=False)           # warm-up
-    _, total = timed(lambda: plan.render_with_stats(scene, cam,
-                                                    enforce=False))
-    ps, pre = timed(lambda: plan.preprocess(scene, cam))
-    streams, s1 = timed(lambda: plan.stage1_compact(ps))
-    houts, ctu = timed(lambda: [plan.ctu(ps, ts) for ts in streams])
-    _, blend = timed(lambda: plan._blend_passes(ps, houts))
+    _, total = sync_wall_ms(lambda: plan.render_with_stats(
+        scene, cam, enforce=False))
+    ps, pre = sync_wall_ms(lambda: plan.preprocess(scene, cam))
+    streams, s1 = sync_wall_ms(lambda: plan.stage1_compact(ps))
+    houts, ctu = sync_wall_ms(lambda: [plan.ctu(ps, ts) for ts in streams])
+    _, blend = sync_wall_ms(lambda: plan._blend_passes(ps, houts))
     stages = dict(preprocess=pre, stage1_compact=s1, ctu=ctu, blend=blend,
                   rest=total - pre - s1 - ctu - blend, total=total)
     log(f"[{label}] ms per stage, " + ", ".join(
@@ -811,14 +862,22 @@ def same_frame(a, b) -> bool:
                     for k in a.counters))
 
 
-def device_busy_ms(fn) -> float:
-    """Device-busy ms of `fn` under torch.profiler (device-side events)."""
+def device_profile(fn) -> tuple[float, list]:
+    """(device-busy ms, [(kernel, ms), ...] by descending device time) of
+    `fn` under torch.profiler (device-side events)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    rows = sorted(((e.key, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    return sum(ms for _, ms in rows), rows
+
+
+def device_busy_ms(fn) -> float:
+    """Device-busy ms of `fn` under torch.profiler (device-side events)."""
+    return device_profile(fn)[0]
 
 
 def phase_batch(engine, name, plain_images) -> dict:
@@ -1465,6 +1524,382 @@ def phase_unfused(dvs: dict) -> dict:
                 launches=launches, max_abs_err_vs_fused=err)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: camera-dependent LOD at the reference's 4M-Gaussian rung
+# ---------------------------------------------------------------------------
+
+# The full LOD rung of the reference's scaling benchmark
+# (benchmarks/scaling.py:396-415): its scene distribution, serve camera,
+# probe set and LODConfig; the scene seed is the reference's key, n.
+LOD_RUNG = dict(
+    n=1 << 22, res=512, probe_res=128, fov=32.0, seed=1 << 22,
+    scene_kw=dict(extent=10.0, scale_range=(-3.3, -2.7), stretch=3.0,
+                  opacity_range=(-1.0, 3.0)),
+    cfg=LODConfig(num_clusters=4096, probe_k_max=256, probe_passes=2,
+                  min_bucket=4096, min_footprint_px=1.0, mass_floor=1e-6),
+    engine_thetas=(0.0, 0.03))
+LOD_KMEANS_SEED = 0                  # the generator k-means draws from
+LOD_KEYS = ("lod_clusters_total", "lod_clusters_selected",
+            "lod_gaussians_selected", "lod_selection_ratio", "lod_bucket")
+
+
+def spill_plan(res: int, k: int):
+    """The hd1080 serving plan at res² for a measured survivor bound k,
+    sized as the engine sizes it: passes of min(512, k) entries, a power
+    of two of them covering k."""
+    base = hd1080_plan()
+    k_pass = min(base.stream.k_max, k)
+    passes = next_pow2(-(-k // k_pass))
+    return dataclasses.replace(
+        base, grid=GridConfig(res, res),
+        stream=dataclasses.replace(base.stream, k_max=k_pass,
+                                   max_spill_passes=passes))
+
+
+def lod_cameras(rung: dict, res: int, thetas, dev) -> list:
+    """res² cameras at the rung's fov: `default_camera` for theta None,
+    else `orbit_camera(theta)`."""
+    return [default_camera(res, res, rung["fov"], device=dev) if t is None
+            else orbit_camera(t, res, res, fov_deg=rung["fov"], device=dev)
+            for t in thetas]
+
+
+def lod_ply_round_trip(rung: dict, dev) -> tuple:
+    """The rung's scene drawn on `dev`, written with `save_ply` under
+    build/lod/ and loaded back with `load_ply`: means, log-scales, quats
+    and opacity bit-equal, colors within 1e-6 (the SH_C0 affine map, the
+    reference's own round-trip contract). Returns (loaded scene, stats)."""
+    gen = torch.Generator(dev).manual_seed(rung["seed"])
+    drawn = random_scene(gen, rung["n"], device=dev, **rung["scene_kw"])
+    path = os.path.join(ROOT, "build", "lod", f"lod_{rung['n']}.ply")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    save_ply(drawn, path)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    scene = load_ply(path, device=dev)
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    for f in ("means", "log_scales", "quats", "opacity_logits"):
+        check(torch.equal(getattr(scene, f), getattr(drawn, f)),
+              f"PLY round trip changed {f}")
+    color_err = float((scene.colors - drawn.colors).abs().max())
+    check(color_err <= 1e-6, f"PLY round trip moved colors by {color_err}")
+    log(f"[lod] PLY: {rung['n']} Gaussians, {size} bytes, save "
+        f"{save_s:.2f} s, load {load_s:.2f} s; means/log_scales/quats/"
+        f"opacity bit-equal, colors max |Δ| {color_err:.2e}")
+    return scene, dict(bytes=size, save_s=save_s, load_s=load_s,
+                       color_max_abs_err=color_err)
+
+
+def lod_build(rung: dict, scene, probes, grid) -> tuple:
+    """Phase 7a: `build_lod` twice from one generator seed, the two builds
+    bit-equal; then its k-means and its probe scoring timed apart, warm
+    like the second build, and the rest of that build (scene reorder,
+    cluster mass) as the difference."""
+    cfg, dev = rung["cfg"], scene.means.device
+    builds, build_ms = [], []
+    for _ in range(2):
+        lod, ms = sync_wall_ms(lambda: build_lod(
+            scene, probes, cfg, grid=grid,
+            generator=torch.Generator(dev).manual_seed(LOD_KMEANS_SEED)))
+        builds.append(lod)
+        build_ms.append(ms)
+    c = min(cfg.num_clusters, scene.n)
+    cl, kmeans_ms = sync_wall_ms(lambda: kmeans_clusters(
+        scene, c, iters=cfg.kmeans_iters,
+        generator=torch.Generator(dev).manual_seed(LOD_KMEANS_SEED)))
+    pgrid = grid.with_resolution(probes[0].height, probes[0].width).make()
+    _, scores_ms = sync_wall_ms(lambda: contribution_scores(
+        scene, probes, pgrid, k_max=cfg.probe_k_max,
+        passes=cfg.probe_passes))
+    rest_ms = build_ms[1] - kmeans_ms - scores_ms
+    a, b = builds
+    for f in ("member_cluster", "centers", "radii", "counts", "starts",
+              "mass"):
+        check(torch.equal(getattr(a, f), getattr(b, f)),
+              f"two build_lod runs differ in {f}")
+    for f in ("means", "log_scales", "quats", "opacity_logits", "colors"):
+        check(torch.equal(getattr(a.scene, f), getattr(b.scene, f)),
+              f"two build_lod runs differ in the member scene's {f}")
+    check(torch.equal(a.counts, cl.counts.to(torch.int32)),
+          "build_lod's clusters differ from kmeans_clusters' of the seed")
+    largest = int(a.counts.max())
+    log(f"[lod] 7a build: {a.n_clusters} clusters over {a.n_real} members "
+        f"(padded {a.n_padded}, largest cluster {largest}); build_lod "
+        f"{build_ms[0]:.1f} ms first, {build_ms[1]:.1f} ms warm, the two "
+        f"builds bit-equal; warm split: k-means {kmeans_ms:.1f} ms, probe "
+        f"scoring {scores_ms:.1f} ms ({len(probes)} probes at "
+        f"{probes[0].width}²), the rest {rest_ms:.1f} ms")
+    return a, dict(clusters=a.n_clusters, members=a.n_real,
+                   padded=a.n_padded, largest_cluster=largest,
+                   kmeans_ms=kmeans_ms, scores_ms=scores_ms,
+                   rest_ms=rest_ms, build_ms=build_ms)
+
+
+def lod_served_frame(rung: dict, scene, lod, grid, cam) -> dict:
+    """Phase 7b: the served LOD frame against the full frame of the same
+    camera: selection, k_max and passes, walls, device-busy ms, PSNR and
+    SSIM, peak memory, K1 and K2 once a pass on each frame."""
+    cfg = rung["cfg"]
+    dev = scene.means.device
+    sel = select_clusters(lod, cam, cfg)
+    n_sel = int(selected_members(lod, sel))
+    bucket = selection_bucket_for(n_sel, cfg, lod.n_padded)
+    ratio = n_sel / rung["n"]
+    k_full = measure_k_max(scene, [cam], grid=grid, cap=scene.n)
+    k_lod = measure_lod_k_max(lod, [cam], cfg, grid=grid)
+    full_plan = spill_plan(rung["res"], k_full)
+    lod_plan = dataclasses.replace(
+        spill_plan(rung["res"], k_lod),
+        lod=dataclasses.replace(cfg, selection_bucket=bucket))
+    frames, peak = {}, {}
+    for label, plan, fn in (
+            ("full", full_plan,
+             lambda: full_plan.render_with_stats(scene, cam)),
+            ("lod", lod_plan,
+             lambda: lod_plan.render_lod_with_stats(lod, cam))):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        frames[label] = fn()
+        check_launches(f"lod 7b {label} frame", plan.n_passes)
+        peak[label] = (torch.cuda.max_memory_allocated() / 2**30
+                       if dev.type == "cuda" else 0.0)
+    (out_full, _), (out_lod, c_lod) = frames["full"], frames["lod"]
+    check(out_lod.image.shape == (rung["res"], rung["res"], 3)
+          and bool(torch.isfinite(out_lod.image).all()),
+          "the LOD frame is not a finite image of the serve resolution")
+    check(int(c_lod["lod_gaussians_selected"]) == n_sel
+          and int(c_lod["lod_bucket"]) == bucket,
+          "the LOD frame's lod_* counters disagree with the selection")
+    plain_err = {
+        "full": held_to_plain(out_full, plain_renderer(full_plan)
+                              .render_with_stats(scene, cam)[0],
+                              "lod 7b full frame"),
+        "lod": held_to_plain(out_lod, plain_renderer(lod_plan)
+                             .render_lod_with_stats(lod, cam)[0],
+                             "lod 7b LOD frame")}
+    q = float(psnr(out_lod.image, out_full.image))
+    s = float(ssim(out_lod.image, out_full.image))
+    check(ratio < 1.0, f"selection ratio {ratio} is not below 1")
+    check(q >= 30.0, f"LOD frame PSNR {q:.2f} dB < 30 dB against the full "
+          "frame")
+    with obs.use_tracer(obs.Tracer()) as tracer:
+        lod_plan.render_lod_with_stats(lod, cam)
+    s0 = tracer.roots[0]
+    check(s0.name == "stage0_lod" and tracer.roots[1].name == "render",
+          "the LOD render's roots are not stage0_lod, render")
+    walls = {}
+    for label, fn in (("full",
+                       lambda: full_plan.render_with_stats(scene, cam)),
+                      ("lod",
+                       lambda: lod_plan.render_lod_with_stats(lod, cam))):
+        fn()                                            # warm
+        walls[label] = [sync_wall_ms(fn)[1] for _ in range(3)]
+    sub, _ = gather_subscene(lod, sel, bucket)
+    stages = dict(full=stage_walls(full_plan, scene, cam, "lod full frame"),
+                  lod=stage_walls(lod_plan, sub, cam, "lod frame"))
+    busy, top = {}, {}
+    for label, fn in (
+            ("full", lambda: full_plan.render_with_stats(scene, cam)),
+            ("lod", lambda: lod_plan.render_lod_with_stats(lod, cam))):
+        busy[label], rows = device_profile(fn)
+        top[label] = rows[:6]
+    speedup = min(walls["full"]) / min(walls["lod"])
+    row = dict(clusters_total=lod.n_clusters,
+               clusters_selected=int(sel.sum()), gaussians_selected=n_sel,
+               selection_ratio=ratio, bucket=bucket, k_max_full=k_full,
+               k_max_lod=k_lod, passes_full=full_plan.n_passes,
+               passes_lod=lod_plan.n_passes,
+               stage0_span_ms=s0.wall_s * 1e3,
+               walls_ms=walls, stages_ms=stages, device_busy_ms=busy,
+               top_device_ms=top,
+               psnr_db=q, ssim=s, peak_gib=peak, speedup=speedup,
+               max_abs_err_vs_plain=plain_err)
+    log(f"[lod] 7b selected {row['clusters_selected']}/{lod.n_clusters} "
+        f"clusters = {n_sel} Gaussians (ratio {ratio:.6f}, bucket "
+        f"{bucket}); k_max {k_full} -> {k_lod}, passes "
+        f"{full_plan.n_passes} -> {lod_plan.n_passes}")
+    log(f"[lod] 7b stage0_lod span {row['stage0_span_ms']:.2f} ms; frame "
+        f"walls ms full "
+        f"{[round(x, 2) for x in walls['full']]}, LOD "
+        f"{[round(x, 2) for x in walls['lod']]} (full/LOD {speedup:.2f}x; "
+        "the reference's CPU gate is 5x); device busy full "
+        f"{busy['full']:.2f} ms, LOD {busy['lod']:.2f} ms")
+    for label in ("full", "lod"):
+        log(f"[lod] 7b top device time, {label} frame: " + "; ".join(
+            f"{k[:60]} {v:.2f} ms" for k, v in top[label][:4]))
+    log(f"[lod] 7b LOD vs full: PSNR {q:.2f} dB, SSIM {s:.5f}; peak memory "
+        f"full {peak['full']:.2f} GiB, LOD {peak['lod']:.2f} GiB; K1 and "
+        "K2 once a pass on each frame; vs the plain plan's frame max |Δ| "
+        f"full {plain_err['full']:.2e}, LOD {plain_err['lod']:.2e}")
+    return dict(row, out_full=out_full, full_plan=full_plan)
+
+
+def tile_rows(grid, x) -> torch.Tensor:
+    """(H, W, ...) image -> (T, tile*tile*...) rows, one per tile."""
+    grid = grid.make()
+    t = grid.tile
+    x = x.reshape(grid.tiles_y, t, grid.tiles_x, t, -1).transpose(1, 2)
+    return x.reshape(grid.num_tiles, -1)
+
+
+def lod_select_all(rung: dict, scene, lod, grid, cam, served: dict) -> dict:
+    """Phase 7c: footprint and mass tests off, so selection is the
+    conservative cluster cull. Every tile whose survivor lists hold the
+    same Gaussians in the same order in the LOD frame and the full frame
+    renders bit-equal; where the order differs the depths must agree
+    entry by entry (a depth tie the build's reorder swapped: the stable
+    depth sort keeps index order, and the reorder changed the indices)."""
+    cfg = dataclasses.replace(rung["cfg"], min_footprint_px=0.0,
+                              mass_floor=0.0)
+    sel = select_clusters(lod, cam, cfg)
+    n_sel = int(selected_members(lod, sel))
+    bucket = selection_bucket_for(n_sel, cfg, lod.n_padded)
+    plan = dataclasses.replace(
+        served["full_plan"], lod=dataclasses.replace(
+            cfg, selection_bucket=bucket))
+    reset_launches()
+    out, _ = plan.render_lod_with_stats(lod, cam)
+    check_launches("lod 7c select-all frame", plan.n_passes)
+    plain_err = held_to_plain(
+        out, plain_renderer(plan).render_lod_with_stats(lod, cam)[0],
+        "lod 7c select-all frame")
+    full = served["out_full"]
+    sub, _ = gather_subscene(lod, sel, bucket)
+
+    def lists_and_keys(s):
+        ps = plan.preprocess(s, cam)
+        lists = torch.cat([ts.lists for ts in plan.stage1_compact(ps)],
+                          dim=1).long()
+        idx = lists.clamp_min(0)
+        feat = torch.cat([s.means, s.opacity_logits[:, None], s.colors],
+                         dim=1)[idx]
+        return lists >= 0, feat, ps.proj.depth[idx]
+
+    valid_f, feat_f, depth_f = lists_and_keys(scene)
+    valid_s, feat_s, depth_s = lists_and_keys(sub)
+    check(torch.equal(valid_f, valid_s),
+          "a tile's survivor count differs between the LOD and full frame")
+    differs = ((feat_f != feat_s).any(dim=2) & valid_f).any(dim=1)
+    depth_same = ((depth_f == depth_s) | ~valid_f).all(dim=1)
+    check(bool((depth_same | ~differs).all()),
+          "a tile's lists differ beyond depth ties between the LOD and the "
+          "full frame")
+    same_px = ((tile_rows(grid, out.image) == tile_rows(grid, full.image))
+               .all(dim=1) & (tile_rows(grid, out.alpha)
+                              == tile_rows(grid, full.alpha)).all(dim=1))
+    bad = int((~same_px & ~differs).sum())
+    check(bad == 0, f"{bad} tiles without a swapped depth tie differ "
+          "between the select-all LOD frame and the full frame")
+    tied, tied_px = int(differs.sum()), int((differs & ~same_px).sum())
+    log(f"[lod] 7c select-all: {int(sel.sum())}/{lod.n_clusters} clusters "
+        f"= {n_sel} Gaussians (bucket {bucket}); {tied} of "
+        f"{grid.make().num_tiles} tiles hold a depth tie the reorder swapped "
+        f"({tied_px} of them differ in pixels); every other tile "
+        "bit-equal to the full frame; vs the plain plan's frame max |Δ| "
+        f"{plain_err:.2e}")
+    return dict(clusters_selected=int(sel.sum()), gaussians_selected=n_sel,
+                bucket=bucket, tiles=grid.make().num_tiles, tied_tiles=tied,
+                tied_tiles_pixels_differ=tied_px,
+                max_abs_err_vs_plain=plain_err)
+
+
+def lod_engine(rung: dict, scene, dev) -> dict:
+    """Phase 7d: a fresh engine on the hd1080 plan at res², the scene
+    registered with lod= over three res² probe poses; one batch of two
+    requests (K1 and K2 once a pass of the batch), its lod_* counters and
+    gauges, each frame >= 30 dB against its full render; the same batch
+    again a plan-cache hit, bit-identical."""
+    res, cfg = rung["res"], rung["cfg"]
+    engine = RenderEngine(
+        dataclasses.replace(hd1080_plan(), grid=GridConfig(res, res)),
+        device=dev, max_batch=2,
+        telemetry=Telemetry(registry=obs.MetricsRegistry()))
+    probes = lod_cameras(rung, res, (None, 0.06, -0.06), dev)
+    t0 = time.perf_counter()
+    entry = engine.register_scene("lod4m", scene, probe_cameras=probes,
+                                  lod=cfg)
+    register_s = time.perf_counter() - t0
+    reqs = [RenderRequest("lod4m", c, request_id=i) for i, c in
+            enumerate(lod_cameras(rung, res, rung["engine_thetas"], dev))]
+    reset_launches()
+    frames = engine.render_batch(reqs)
+    launches = check_launches("lod 7d batch", frames[0].passes_run)
+    check(all(f.batch_size == 2 for f in frames),
+          "the two LOD requests were not served as one batch")
+    # The batch's union sub-scene as the engine gathers it, and the plan it
+    # rendered that with: each frame held against the plain plan's render.
+    sub, bucket, _ = engine._lod_gather(entry, [r.camera for r in reqs])
+    plain = plain_renderer(engine.plan_for("lod4m", res, res,
+                                           lod_bucket=bucket))
+    rows = []
+    for f in frames:
+        check(all(k in f.counters for k in LOD_KEYS),
+              "an LOD frame lacks a lod_* counter")
+        cam = f.request.camera
+        err = held_to_plain(f, plain.render_with_stats(sub, cam)[0],
+                            f"lod 7d engine frame {f.request.request_id}")
+        k = measure_k_max(scene, [cam], grid=GridConfig(res, res),
+                          cap=scene.n)
+        full, _ = spill_plan(res, k).render_with_stats(scene, cam)
+        q = float(psnr(f.image, full.image))
+        check(q >= 30.0, f"engine LOD frame {f.request.request_id}: PSNR "
+              f"{q:.2f} dB < 30 dB against its full render")
+        rows.append(dict(request=f.request.request_id, psnr_db=q,
+                         max_abs_err_vs_plain=err, **{
+            k: float(f.counters[k]) for k in LOD_KEYS + ("n_gaussians",)}))
+    text = engine.telemetry.registry.expose()
+    for name in ("engine_scene_lod_clusters", "engine_lod_selection_ratio",
+                 "engine_lod_clusters_selected",
+                 "engine_lod_gaussians_selected",
+                 "render_lod_selection_ratio"):
+        check(name in text, f"gauge {name} missing after an LOD batch")
+    compiles = engine.compile_count
+    again = engine.render_batch(reqs)
+    check(engine.compile_count == compiles,
+          "the repeated LOD batch missed the plan cache")
+    check(all(same_frame(a, b) for a, b in zip(frames, again)),
+          "the repeated LOD batch is not bit-identical")
+    log(f"[lod] 7d engine: registered in {register_s:.2f} s (k_max "
+        f"{entry.k_max}, {entry.lod.n_clusters} clusters); batch of 2, "
+        f"{frames[0].passes_run} passes, launches {launches}, wall "
+        f"{frames[0].render_s * 1e3:.1f} ms (again "
+        f"{again[0].render_s * 1e3:.1f} ms, a plan-cache hit, "
+        "bit-identical); " + "; ".join(
+            f"request {r['request']}: {int(r['lod_clusters_selected'])} "
+            f"clusters, {int(r['lod_gaussians_selected'])} Gaussians, "
+            f"bucket {int(r['lod_bucket'])}, PSNR {r['psnr_db']:.2f} dB, "
+            f"vs the plain plan max |Δ| {r['max_abs_err_vs_plain']:.2e}"
+            for r in rows))
+    return dict(register_s=register_s, k_max=entry.k_max,
+                passes=frames[0].passes_run, launches=launches,
+                walls_ms=[frames[0].render_s * 1e3, again[0].render_s * 1e3],
+                frames=rows)
+
+
+def phase_lod(rung: dict = LOD_RUNG, dev=torch.device("cuda")) -> dict:
+    """Phase 7: the rung's scene through PLY, the LOD build (7a), the
+    served LOD frame against the full frame (7b), select-all (7c) and the
+    engine's LOD path (7d)."""
+    scene, ply = lod_ply_round_trip(rung, dev)
+    grid = GridConfig(rung["res"], rung["res"])
+    probes = lod_cameras(rung, rung["probe_res"], (None, 0.06, -0.06), dev)
+    lod, build_row = lod_build(rung, scene, probes, grid)
+    cam = default_camera(rung["res"], rung["res"], rung["fov"], device=dev)
+    served = lod_served_frame(rung, scene, lod, grid, cam)
+    select_all = lod_select_all(rung, scene, lod, grid, cam, served)
+    for key in ("out_full", "full_plan"):
+        served.pop(key)
+    del lod
+    engine = lod_engine(rung, scene, dev)
+    return dict(ply=ply, build=build_row, served=served,
+                select_all=select_all, engine=engine)
+
+
 def write_json(path, summary: dict) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -1527,6 +1962,15 @@ def sessions_only(summary: dict, json_path) -> int:
     return 0
 
 
+def lod_only(summary: dict, json_path) -> int:
+    """Phase 7 alone. Prints the card line and the contract's last line."""
+    summary["lod"] = timed_phase("lod", phase_lod)
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
 def ok_line() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1546,6 +1990,9 @@ def main() -> int:
     parser.add_argument("--sessions-only", action="store_true",
                         help="run only the build and phase 4g (three "
                         "frame-coherent sessions at 1920x1088)")
+    parser.add_argument("--lod-only", action="store_true",
+                        help="run only the build and phase 7 (LOD at the "
+                        "4M-Gaussian rung)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1566,6 +2013,8 @@ def main() -> int:
         return offpath_only(summary, args.json)
     if args.sessions_only:
         return sessions_only(summary, args.json)
+    if args.lod_only:
+        return lod_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -1619,6 +2068,9 @@ def main() -> int:
     engine, name = session_engine()
     summary["sessions"] = timed_phase("sessions", phase_sessions, engine,
                                       name, session_cameras())
+    del engine
+    torch.cuda.empty_cache()
+    summary["lod"] = timed_phase("lod", phase_lod)
 
     kernels = []
     csrc = "src/repro_torch/kernels/csrc/"

@@ -6,7 +6,9 @@ blends.
 Layout mirrors the JAX reference package module for module:
     core/      scene, camera, projection, Stage-1 compaction, CAT, blend,
                the staged RenderPlan (stream and dense dataflows, the AABB
-               and OBB baselines), the legacy RenderConfig shim
+               and OBB baselines), the legacy RenderConfig shim, PLY I/O,
+               k-means clustering and contribution scores
+    lod/       camera-dependent LOD: build, cluster selection, gather
     kernels/   CUDA kernels (csrc/), their wrappers and plain versions
     obs/       span tracing, the metrics registry and exporters
     serving/   RenderEngine (batched), telemetry, the deadline scheduler
@@ -17,12 +19,14 @@ from repro_torch.core import (FLICKER_CONFIG, GSCORE_CONFIG, VANILLA_CONFIG,
                               GaussianScene, GridConfig, OverflowPolicy,
                               RasterConfig, RenderConfig, RenderPlan,
                               Renderer, StreamConfig, TestConfig,
-                              orbit_camera, random_scene)
+                              SH_C0, load_ply, orbit_camera, random_scene,
+                              save_ply, ssim)
 from repro_torch.serving import RenderEngine, RenderRequest, hd1080_engine
 
 __all__ = [
     "FLICKER_CONFIG", "GSCORE_CONFIG", "VANILLA_CONFIG", "RenderConfig",
     "GaussianScene", "GridConfig", "OverflowPolicy", "RasterConfig",
     "RenderPlan", "Renderer", "StreamConfig", "TestConfig", "orbit_camera",
-    "random_scene", "RenderEngine", "RenderRequest", "hd1080_engine",
+    "random_scene", "SH_C0", "load_ply", "save_ply", "ssim", "RenderEngine",
+    "RenderRequest", "hd1080_engine",
 ]

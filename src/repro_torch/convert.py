@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.camera import Camera
 from repro_torch.core.gaussians import GaussianScene, Projected
+from repro_torch.lod.build import LODScene
 
 
 def _t(x, device) -> torch.Tensor:
@@ -35,3 +36,14 @@ def camera_from_numpy(d: Mapping, device="cpu") -> Camera:
 
 def projected_from_numpy(d: Mapping, device="cpu") -> Projected:
     return Projected(*(_t(d[f], device) for f in Projected._fields))
+
+
+def lod_scene_from_numpy(d: Mapping, device="cpu") -> LODScene:
+    """`d["scene"]` is itself a mapping of the member scene's fields;
+    `n_real` an int."""
+    return LODScene(
+        scene=scene_from_numpy(d["scene"], device),
+        **{f: _t(d[f], device) for f in ("member_cluster", "centers",
+                                          "radii", "counts", "starts",
+                                          "mass")},
+        n_real=int(d["n_real"]))

@@ -19,7 +19,8 @@ from repro_torch.core.renderer import (GridConfig, OverflowPolicy,
                                        StreamOverflowWarning, TestConfig,
                                        TileStream, cat_mask_elems,
                                        frame_counters, measure_k_max)
-from repro_torch.core.metrics import psnr
+from repro_torch.core.io import SH_C0, load_ply, save_ply
+from repro_torch.core.metrics import psnr, ssim
 from repro_torch.core.coherence import (CoherenceConfig, FrameCache,
                                         camera_delta, render_incremental,
                                         tile_fingerprints)
@@ -40,7 +41,8 @@ __all__ = [
     "RasterConfig", "RenderPlan", "Renderer", "StreamConfig",
     "StreamOverflowError", "StreamOverflowWarning", "TestConfig",
     "TileStream", "cat_mask_elems", "frame_counters", "measure_k_max",
-    "psnr", "CoherenceConfig", "FrameCache", "camera_delta",
+    "SH_C0", "load_ply", "save_ply", "psnr", "ssim", "CoherenceConfig",
+    "FrameCache", "camera_delta",
     "render_incremental", "tile_fingerprints",
     "FULL_FP16", "FULL_FP32", "FULL_FP8", "MIXED", "PrecisionScheme",
     "FLICKER_CONFIG", "GSCORE_CONFIG", "VANILLA_CONFIG", "RenderConfig",

@@ -37,6 +37,12 @@ i run once for all frames, folded into the tile axis
 once per pass for the batch. Each frame equals `render_with_stats` of its
 own camera bit for bit; `render_with_stats` is the batch of one.
 
+`RenderPlan.lod` (default None) attaches the camera-dependent LOD stage
+(`repro_torch.lod.LODConfig`): `render_lod_with_stats` selects a scene's
+clusters for the camera and gathers a pow2-bucketed sub-scene before Stage
+1, under a `stage0_lod` span in front of the usual tree. Every other entry
+point ignores the field.
+
 Every render emits a host-side span tree on the active tracer
 (`repro_torch.obs.trace`, NoopTracer by default):
 
@@ -62,7 +68,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import warnings
-from typing import Optional
+from typing import Optional, TYPE_CHECKING
 
 import torch
 
@@ -74,6 +80,10 @@ from repro_torch.core import hierarchy as H
 from repro_torch.core import raster
 from repro_torch.core.precision import PrecisionScheme, MIXED
 from repro_torch.obs import trace as obs_trace
+
+if TYPE_CHECKING:
+    from repro_torch.lod.build import LODScene
+    from repro_torch.lod.config import LODConfig
 
 BACKENDS = ("torch", "cuda")
 
@@ -197,13 +207,15 @@ class TileStream:
 class RenderPlan:
     """An executable, hashable composition of the render stages. dataflow
     is "stream" (survivor streams, the default) or "dense" (the parity
-    oracle). Tensors stay on the device of the scene and camera they are
-    given."""
+    oracle). lod (default None) is the optional LOD stage's
+    `repro_torch.lod.LODConfig`, read only by `render_lod_with_stats`.
+    Tensors stay on the device of the scene and camera they are given."""
     grid: GridConfig = GridConfig()
     test: TestConfig = TestConfig()
     stream: StreamConfig = StreamConfig()
     raster: RasterConfig = RasterConfig()
     dataflow: str = "stream"                  # stream | dense
+    lod: Optional["LODConfig"] = None
 
     def __post_init__(self):
         if self.dataflow not in ("stream", "dense"):
@@ -452,6 +464,51 @@ class RenderPlan:
                     for k in frames[0][1]}
         return out, counters
 
+    def render_lod_with_stats(self, lod_scene: "LODScene", camera):
+        """Camera-dependent LOD render: select clusters, gather the compact
+        sub-scene, run the plan on it (a `stage0_lod` span in front of the
+        usual `render` tree).
+
+        Requires `plan.lod` (a `repro_torch.lod.LODConfig`) and a
+        `LODScene` from `repro_torch.lod.build_lod`. The selection bucket
+        (the gather capacity) is `lod.selection_bucket` when pinned (the
+        serving engine pins it per batch, and it keys the plan cache) and
+        otherwise derived from the selected member count. Every render here
+        is eager, so the selected count is always known on the host: the
+        reference's refusal of an unpinned bucket under jit/vmap has no
+        counterpart. Returns (RenderOut, counters) like `render_with_stats`
+        plus lod_clusters_total / lod_clusters_selected /
+        lod_gaussians_selected / lod_selection_ratio / lod_bucket."""
+        cfg = self.lod
+        if cfg is None:
+            raise ValueError("render_lod_with_stats needs a plan with "
+                             "lod=LODConfig(...) (this plan has lod=None)")
+        from repro_torch.lod.select import (gather_selection, select_clusters,
+                                            selected_members)
+        tracer = obs_trace.current()
+        with tracer.span("stage0_lod") as sp:
+            sel = select_clusters(lod_scene, camera, cfg)
+            n_sel = selected_members(lod_scene, sel)
+            sub, bucket = gather_selection(lod_scene, sel, cfg, n_sel)
+            tracer.block(sub)
+            if tracer.enabled:
+                sp.set(clusters_total=lod_scene.n_clusters, bucket=bucket,
+                       traced=False, clusters_selected=int(sel.sum()),
+                       gaussians_selected=int(n_sel))
+        out, counters = self.render_with_stats(sub, camera)
+        device = n_sel.device
+        f32 = torch.float32
+        counters = dict(counters)
+        counters["lod_clusters_total"] = torch.tensor(
+            float(lod_scene.n_clusters), dtype=f32, device=device)
+        counters["lod_clusters_selected"] = sel.sum().to(f32)
+        counters["lod_gaussians_selected"] = n_sel.to(f32)
+        counters["lod_selection_ratio"] = (
+            n_sel.to(f32) / float(max(lod_scene.n_real, 1)))
+        counters["lod_bucket"] = torch.tensor(float(bucket), dtype=f32,
+                                              device=device)
+        return out, counters
+
     def _render_frames(self, scene: GaussianScene, cameras,
                        enforce: bool = True):
         """The render of B frames under one `render` span: per-frame
@@ -626,13 +683,14 @@ class Renderer:
                  test: Optional[TestConfig] = None,
                  stream: Optional[StreamConfig] = None,
                  raster: Optional[RasterConfig] = None,
-                 dataflow: str = "stream"):
+                 dataflow: str = "stream",
+                 lod: Optional["LODConfig"] = None):
         self.plan = RenderPlan(
             grid=grid if grid is not None else GridConfig(),
             test=test if test is not None else TestConfig(),
             stream=stream if stream is not None else StreamConfig(),
             raster=raster if raster is not None else RasterConfig(),
-            dataflow=dataflow)
+            dataflow=dataflow, lod=lod)
 
     @classmethod
     def from_plan(cls, plan: RenderPlan) -> "Renderer":
@@ -642,7 +700,7 @@ class Renderer:
 
     def replace(self, **kw) -> "Renderer":
         """New Renderer with plan fields replaced (grid/test/stream/raster/
-        dataflow)."""
+        dataflow/lod)."""
         return Renderer.from_plan(dataclasses.replace(self.plan, **kw))
 
     def render(self, scene: GaussianScene, camera) -> raster.RenderOut:
@@ -658,6 +716,9 @@ class Renderer:
 
     def render_batch_with_stats(self, scene: GaussianScene, cameras):
         return self.plan.render_batch_with_stats(scene, cameras)
+
+    def render_lod_with_stats(self, lod_scene: "LODScene", camera):
+        return self.plan.render_lod_with_stats(lod_scene, camera)
 
     def __repr__(self):
         return f"Renderer({self.plan!r})"

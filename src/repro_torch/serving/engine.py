@@ -53,9 +53,17 @@ batched path. Each cache holds the frame's rows and valid bits, at
 on the device, so the default `max_sessions = 64` may pin about 21 GB:
 size `max_sessions` to the device.
 
+LOD scenes: `register_scene(lod=LODConfig(...), probe_cameras=...)`
+clusters and reorders the scene at registration (`repro_torch.lod.build_lod`)
+and measures k_max over the probes' selected sub-scenes. Per batch the
+engine selects the union of the cameras' clusters, gathers a
+pow2-bucketed compact sub-scene and renders that; the selection bucket is
+pinned into the plan's `LODConfig`, so it keys the plan cache like the
+spill pass bucket.
+
 The engine runs on `torch.device("cuda")` unless it is given another
-device, and raises if CUDA is asked for and absent. LOD scenes and
-multi-device meshes are not ported yet.
+device, and raises if CUDA is asked for and absent. Multi-device meshes
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -64,6 +72,7 @@ import time
 from collections import OrderedDict
 from typing import Callable, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.camera import Camera, stack_cameras
@@ -125,6 +134,12 @@ class _SceneEntry:
     n_real: int
     n_bucket: int
     k_max: int
+    # LOD-registered scenes only (`register_scene(lod=...)`): the built
+    # cluster table and the selection config. `scene` is then the LOD
+    # build's cluster-contiguous padded member scene and `n_bucket` its
+    # padded count.
+    lod: Optional[object] = None          # repro_torch.lod.LODScene
+    lod_cfg: Optional[object] = None      # repro_torch.lod.LODConfig
 
 
 def _resolve_device(device) -> torch.device:
@@ -257,22 +272,58 @@ class RenderEngine:
 
     def register_scene(self, name: str, scene: GaussianScene, *,
                        k_max: Optional[int] = None,
-                       probe_cameras: Optional[Sequence[Camera]] = None
-                       ) -> _SceneEntry:
+                       probe_cameras: Optional[Sequence[Camera]] = None,
+                       lod=None) -> _SceneEntry:
         """Register (and bucket-pad) a scene under `name`, on the engine's
         device. k_max: per-tile list capacity; when None it is measured
         over `probe_cameras` if given (`core.renderer.measure_k_max`,
-        capped at the scene bucket), else the padded Gaussian count."""
+        capped at the scene bucket), else the padded Gaussian count.
+
+        lod: a `repro_torch.lod.LODConfig` to serve this scene through the
+        camera-dependent LOD stage. Requires `probe_cameras`: cluster
+        contribution mass, and the measured k_max (which then bounds the
+        selected sub-scenes, not the full scene), are measured over them.
+        The scene is clustered and reordered here (`lod.build_lod`); per
+        batch the engine gathers the union of the cameras' clusters. Not
+        compatible with `incremental=True` (the coherence cache keys on a
+        fixed scene; LOD swaps the rendered scene per batch)."""
         n_real = scene.n
-        n_bucket = scene_bucket(n_real) if self.pad_scenes else n_real
-        padded = pad_scene(scene.to(self.device), n_bucket)
-        if k_max is None and probe_cameras is not None:
-            # Padding is inert and culled, so it never lengthens a list.
-            k_max = measure_k_max(
-                padded, [c.to(self.device) for c in probe_cameras],
-                grid=self.plan.grid, cap=n_bucket)
-        entry = _SceneEntry(scene=padded, n_real=n_real, n_bucket=n_bucket,
-                            k_max=k_max if k_max is not None else n_bucket)
+        probes = (None if probe_cameras is None else
+                  [c.to(self.device) for c in probe_cameras])
+        if lod is not None:
+            from repro_torch.lod import build_lod, measure_lod_k_max
+            if probes is None:
+                raise ValueError(
+                    "register_scene(lod=...) needs probe_cameras — cluster "
+                    "contribution mass is measured over them, not assumed")
+            if self.incremental:
+                raise ValueError(
+                    "LOD serving is not compatible with incremental=True: "
+                    "the frame-coherence cache keys on a fixed scene, but "
+                    "LOD swaps the rendered sub-scene per batch")
+            lod_scene = build_lod(scene.to(self.device), probes, lod,
+                                  grid=self.plan.grid)
+            if k_max is None:
+                k_max = measure_lod_k_max(lod_scene, probes, lod,
+                                          grid=self.plan.grid,
+                                          cap=lod_scene.n_padded)
+            entry = _SceneEntry(scene=lod_scene.scene, n_real=n_real,
+                                n_bucket=lod_scene.n_padded, k_max=k_max,
+                                lod=lod_scene, lod_cfg=lod)
+            self.telemetry.registry.gauge(
+                "engine_scene_lod_clusters",
+                "LOD cluster count per LOD-registered scene",
+                ("scene",)).set(lod_scene.n_clusters, scene=name)
+        else:
+            n_bucket = scene_bucket(n_real) if self.pad_scenes else n_real
+            padded = pad_scene(scene.to(self.device), n_bucket)
+            if k_max is None and probes is not None:
+                # Padding is inert and culled, so it never lengthens a list.
+                k_max = measure_k_max(padded, probes, grid=self.plan.grid,
+                                      cap=n_bucket)
+            entry = _SceneEntry(
+                scene=padded, n_real=n_real, n_bucket=n_bucket,
+                k_max=k_max if k_max is not None else n_bucket)
         self._scenes[name] = entry
         self._scenes.move_to_end(name)   # re-register refreshes LRU position
         reg = self.telemetry.registry
@@ -321,13 +372,19 @@ class RenderEngine:
 
     # -- plan cache ---------------------------------------------------------
 
-    def plan_for(self, name: str, height: int, width: int) -> RenderPlan:
+    def plan_for(self, name: str, height: int, width: int,
+                 lod_bucket: Optional[int] = None) -> RenderPlan:
         """The engine plan specialized to a scene's k_max and a resolution.
 
         Non-SPILL policies serve at the scene's k_max. SPILL keeps the
         plan's k_max as the per-pass chunk and sizes the pass count to the
         scene: next_pow2(ceil(scene k_max / chunk)), times any learned
-        overflow boost, capped at the count that covers every Gaussian."""
+        overflow boost, capped at the count that covers every Gaussian.
+
+        An LOD-registered scene's plan carries its `LODConfig` with
+        `selection_bucket` pinned to `lod_bucket` (the batch's gather
+        capacity), which thereby joins the plan-cache key; other scenes
+        serve with `plan.lod = None`."""
         entry = self._scenes[name]
         stream = self.plan.stream
         if stream.overflow is OverflowPolicy.SPILL:
@@ -344,9 +401,15 @@ class RenderEngine:
                                          max_spill_passes=passes)
         else:
             stream = dataclasses.replace(stream, k_max=entry.k_max)
+        lod_cfg = None
+        if entry.lod_cfg is not None:
+            lod_cfg = dataclasses.replace(
+                entry.lod_cfg,
+                selection_bucket=(lod_bucket if lod_bucket is not None
+                                  else entry.lod_cfg.selection_bucket))
         return dataclasses.replace(
             self.plan, grid=self.plan.grid.with_resolution(height, width),
-            stream=stream)
+            stream=stream, lod=lod_cfg)
 
     def _render_fn(self, n_bucket: int, plan: RenderPlan, bucket: int):
         """Returns (render callable, miss: bool) for a cache key; a miss
@@ -437,18 +500,34 @@ class RenderEngine:
 
         tracer = obs_trace.current()
         retries = passes_run = 0
+        scene_in, n_bucket = entry.scene, entry.n_bucket
+        lod_bucket = lod_sel = None
         t0 = time.perf_counter()   # spans retries: render_s is the wall the
         with tracer.span("engine.render_batch",   # batch cost, retries incl.
                          {"scene": name, "batch": n, "bucket": bucket,
                           "res": f"{width}x{height}"}) as batch_span:
+            if entry.lod is not None:
+                # Camera-dependent LOD: select per camera, gather the
+                # batch-union sub-scene once, render that. The gather
+                # capacity is pinned into the plan below, so it keys the
+                # plan cache like the spill pass bucket.
+                with tracer.span("stage0_lod", {"scene": name}) as sp:
+                    scene_in, lod_bucket, lod_sel = self._lod_gather(
+                        entry, cameras[:n])
+                    n_bucket = lod_bucket
+                    if tracer.enabled:
+                        sp.set(clusters_total=entry.lod.n_clusters,
+                               bucket=lod_bucket,
+                               gaussians_selected=lod_sel["union"])
             while True:
-                plan = self.plan_for(name, height, width)
-                fn, miss = self._render_fn(entry.n_bucket, plan, bucket)
+                plan = self.plan_for(name, height, width,
+                                     lod_bucket=lod_bucket)
+                fn, miss = self._render_fn(n_bucket, plan, bucket)
                 with tracer.span("jit_render",
                                  {"compile": miss,
                                   "n_passes": plan.stream.max_spill_passes,
                                   "k_max": plan.stream.k_max}):
-                    out, counters = fn(entry.scene, cams)
+                    out, counters = fn(scene_in, cams)
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
                 passes_run += plan.n_passes
@@ -457,7 +536,7 @@ class RenderEngine:
                 overflow_frames = int(sum(frame_overflow))
                 spill = plan.stream.overflow is OverflowPolicy.SPILL
                 capacity = plan.stream.k_max * plan.stream.max_spill_passes
-                if overflow_frames and spill and capacity < entry.n_bucket:
+                if overflow_frames and spill and capacity < n_bucket:
                     # Off-probe traffic exhausted the spill capacity: double
                     # the scene's pass bucket (it sticks) and re-render.
                     self._spill_boost[name] = \
@@ -471,11 +550,14 @@ class RenderEngine:
                                overflow_frames=overflow_frames, wall_s=dt)
 
         # Drop padding frames, then report the real Gaussian count, not the
-        # padded bucket.
+        # padded bucket: an LOD batch rendered its selected union.
         counters = {k: v[:n] for k, v in counters.items()}
         if "n_gaussians" in counters:
             counters["n_gaussians"] = torch.full(
-                (n,), float(entry.n_real), device=self.device)
+                (n,), float(entry.n_real if lod_sel is None
+                            else lod_sel["union"]), device=self.device)
+        if lod_sel is not None:
+            self._lod_counters(name, entry, counters, lod_sel, lod_bucket, n)
         self.telemetry.record_batch(batch_size=n, bucket_size=bucket,
                                     latency_s=dt, counters=counters,
                                     height=height, width=width,
@@ -495,6 +577,61 @@ class RenderEngine:
                         overflow=bool(frame_overflow[i]))
             for i, r in enumerate(requests)
         ]
+
+    def _lod_gather(self, entry: _SceneEntry, cameras):
+        """Select per camera and gather the union sub-scene for one batch.
+
+        Returns (sub-scene sized to the selection bucket, bucket, selection
+        stats: 'clusters' and 'gaussians' per frame as (B,) float32 tensors
+        on the device, 'host' their float32 numpy copies and 'union' the
+        union's member count). The stats reach the host in one copy."""
+        from repro_torch.lod import select_clusters, selected_members
+        from repro_torch.lod.select import gather_selection
+        cfg, lod = entry.lod_cfg, entry.lod
+        sels = torch.stack([select_clusters(lod, cam, cfg)
+                            for cam in cameras])               # (B, C)
+        union = sels.any(dim=0)
+        f32 = torch.float32
+        clusters = sels.sum(dim=1).to(f32)
+        gaussians = torch.where(sels, lod.counts, torch.zeros_like(
+            lod.counts)).sum(dim=1).to(f32)
+        host = torch.cat([clusters.double(), gaussians.double(),
+                          selected_members(lod, union).double()[None]]
+                         ).cpu().numpy()
+        b = len(cameras)
+        n_union = int(host[-1])
+        sub, bucket = gather_selection(lod, union, cfg, n_union)
+        return sub, bucket, dict(
+            clusters=clusters, gaussians=gaussians, union=n_union,
+            host=dict(clusters=host[:b].astype(np.float32),
+                      gaussians=host[b:2 * b].astype(np.float32)))
+
+    def _lod_counters(self, name: str, entry: _SceneEntry, counters: dict,
+                      lod_sel: dict, lod_bucket: int, n: int):
+        """Attach the per-frame selection counters and set the scene's
+        selection gauges."""
+        f32 = dict(dtype=torch.float32, device=self.device)
+        n_real = max(entry.lod.n_real, 1)
+        counters["lod_clusters_total"] = torch.full(
+            (n,), float(entry.lod.n_clusters), **f32)
+        counters["lod_clusters_selected"] = lod_sel["clusters"]
+        counters["lod_gaussians_selected"] = lod_sel["gaussians"]
+        counters["lod_selection_ratio"] = lod_sel["gaussians"] / n_real
+        counters["lod_bucket"] = torch.full((n,), float(lod_bucket), **f32)
+        host = lod_sel["host"]
+        reg = self.telemetry.registry
+        reg.gauge("engine_lod_clusters_selected",
+                  "Clusters selected per LOD scene (last-batch mean)",
+                  ("scene",)).set(float(host["clusters"].mean()), scene=name)
+        reg.gauge("engine_lod_gaussians_selected",
+                  "Gaussians selected per LOD scene (last-batch mean)",
+                  ("scene",)).set(float(host["gaussians"].mean()),
+                                  scene=name)
+        reg.gauge("engine_lod_selection_ratio",
+                  "Selected fraction of the scene's Gaussians per LOD "
+                  "scene (last-batch mean)",
+                  ("scene",)).set(float((host["gaussians"] / n_real).mean()),
+                                  scene=name)
 
     def _render_incremental_one(self, request: RenderRequest, name: str,
                                 height: int, width: int) -> FrameResult:

@@ -218,6 +218,19 @@ class Telemetry:
             reg.gauge("render_spill_passes",
                       "Mean spill passes used by the most recent batch"
                       ).set(rec.counters["spill_passes"])
+        if "lod_selection_ratio" in rec.counters:
+            reg.gauge("render_lod_selection_ratio",
+                      "Selected fraction of the scene's Gaussians (mean "
+                      "over the most recent LOD batch)"
+                      ).set(rec.counters["lod_selection_ratio"])
+            reg.gauge("render_lod_clusters_selected",
+                      "Clusters the most recent LOD batch selected "
+                      "(per-frame mean)"
+                      ).set(rec.counters.get("lod_clusters_selected", 0.0))
+            reg.gauge("render_lod_gaussians_selected",
+                      "Gaussians the most recent LOD batch selected "
+                      "(per-frame mean)"
+                      ).set(rec.counters.get("lod_gaussians_selected", 0.0))
         for key, mname, help_ in (
                 ("tiles_reused", "render_tiles_reused_total",
                  "Stage-1 tile compactions skipped by the frame-coherent "

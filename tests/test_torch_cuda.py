@@ -12,7 +12,9 @@ on the card (leaders off the 4x4 lattice, an all-invalid pass, |Δ| on both
 sides of 464); K2 (fused blend) rgb/trans atol 2e-4, counters exact (also
 with sparse masks, ragged K and carried state; a batch of two frames
 folded into the tile axis equal to per-frame launches bit for bit, K1 and
-K2 both); K4 (dense CAT) exact
+K2 both; an LOD build bit-equal across two runs from one seed, and an LOD
+frame through K1 and K2 within 2e-4 of its plain versions); K4 (dense CAT)
+exact
 under FULL_FP32 and MIXED; K3 (full-sweep blend) rgb/trans atol 1e-6;
 the kernels' fp16/fp8 rounding (`prtu.alg1_quant`) bit-equal to the plain
 quantizer, NaN matching any NaN. The
@@ -466,13 +468,58 @@ def check_folded_batch_equals_per_frame(cuda):
             assert torch.equal(batch[b][1][k], counters[k]), k
 
 
+def check_lod_build_and_render(cuda):
+    """`build_lod` on the card twice from one generator seed: every tensor
+    bit-equal (order-fixed sums, no float atomics). Then a 64² LOD frame
+    through K1 and K2 (one launch each a pass of the plan) within 2e-4 of
+    the same LOD plan's plain versions on the card, lod_* counters equal."""
+    import dataclasses
+    from repro_torch.core import (GridConfig, RasterConfig, RenderPlan,
+                                  StreamConfig, TestConfig, default_camera,
+                                  orbit_camera, random_scene)
+    from repro_torch.lod import LODConfig, build_lod, measure_lod_k_max
+    scene = random_scene(torch.Generator().manual_seed(2), 4096,
+                         extent=8.0, scale_range=(-2.9, -2.2), stretch=3.0,
+                         opacity_range=(-1.0, 3.0), device=cuda)
+    probes = [default_camera(64, 64, 30.0, device=cuda),
+              orbit_camera(0.4, 64, 64, fov_deg=30.0, device=cuda)]
+    cfg = LODConfig(num_clusters=64, probe_k_max=128, probe_passes=2,
+                    min_bucket=256)
+    grid = GridConfig(64, 64)
+    a, b = (build_lod(scene, probes, cfg, grid=grid,
+                      generator=torch.Generator(cuda).manual_seed(4))
+            for _ in range(2))
+    for f in ("member_cluster", "centers", "radii", "counts", "starts",
+              "mass"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(a.scene.means, b.scene.means)
+    k = measure_lod_k_max(a, probes[:1], cfg, grid=grid)
+    plan = RenderPlan(grid=grid, test=TestConfig(backend="cuda"),
+                      stream=StreamConfig(k_max=64, overflow="spill",
+                                          max_spill_passes=-(-k // 64)),
+                      raster=RasterConfig(fused=True), lod=cfg)
+    before = (prtu.launches, render.launches)
+    out, c = plan.render_lod_with_stats(a, probes[0])
+    assert (prtu.launches - before[0], render.launches - before[1]) == \
+        (plan.n_passes, plan.n_passes)
+    plain = dataclasses.replace(plan, test=TestConfig(),
+                                raster=RasterConfig())
+    want, wc = plain.render_lod_with_stats(a, probes[0])
+    assert float((out.image - want.image).abs().max()) <= 2e-4
+    assert 0.0 < float(c["lod_selection_ratio"]) < 1.0
+    for key in ("lod_clusters_selected", "lod_gaussians_selected",
+                "lod_bucket"):
+        assert torch.equal(c[key], wc[key]), key
+
+
 @pytest.mark.cuda
 def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     """K2 with ~30% of the mini-tile bits set, wide opaque entries (pixels
     and whole tiles die mid-chunk), a ragged K = 300 and state carried from
     a first pass: rgb/trans within 2e-4 of the plain version, counters
     equal. Then a folded two-frame batch through K1 and K2 against the
-    per-frame launches (`check_folded_batch_equals_per_frame`)."""
+    per-frame launches (`check_folded_batch_equals_per_frame`), and an LOD
+    build and frame on the card (`check_lod_build_and_render`)."""
     t = 24
     rng = np.random.default_rng(11)
     first = [torch.from_numpy(x) for x in blend_operands(12, t=t, k=128)]
@@ -492,6 +539,7 @@ def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     got = type(got)(*(x.cpu() if torch.is_tensor(x) else x for x in got))
     assert_fused_equal(got, want)
     check_folded_batch_equals_per_frame(cuda)
+    check_lod_build_and_render(cuda)
 
 
 @pytest.mark.cuda

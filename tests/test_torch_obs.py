@@ -288,13 +288,16 @@ def test_chrome_trace_and_jsonl_roundtrip(spill_scene, cam, tmp_path):
 
 
 def test_port_imports_without_jax_or_repro():
-    """The serving and obs packages (and with them the renderer and the
-    kernel wrappers) import with `jax` and `repro` unimportable."""
+    """The serving, obs and LOD packages (and with them the renderer, the
+    PLY I/O, clustering, pruning and the kernel wrappers) import with `jax`
+    and `repro` unimportable."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[m] = None\n"
         "import repro_torch.serving, repro_torch.obs, repro_torch.kernels.ops\n"
+        "import repro_torch.lod, repro_torch.convert, repro_torch.core.io\n"
+        "import repro_torch.core.clustering, repro_torch.core.pruning\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
