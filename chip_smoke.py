@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--json PATH] [--passes-only | --offpath-only |
-                          --sessions-only | --lod-only]
+                          --sessions-only | --lod-only | --shards-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -118,16 +118,42 @@ Phases, in order:
         requests (K1 and K2 once a pass of the batch), the lod_* counters
         and gauges, each frame >= 30 dB against its full render, and the
         same batch again a plan-cache hit, bit-identical
-  5. one {"kernels": [...]} line, the card line, and as the last line
-     {"ok": true, "device": {...}}
+  8. runs after 7: multi-device rendering on the hd1080 configuration,
+     every shard on this one card (a mesh of repeated devices): the
+     schedule of a multi-card mesh, not a multi-card speedup.
+     a. an engine with shard_tiles=4 over a virtual mesh of 4 serves
+        requests 1 and 0 beside the unsharded engine (request 1 first
+        settles both on the same pass bucket): each frame bit-equal
+        (image, alpha, every counter the unsharded frame has), K1 and K2
+        launched 4 times a pass of request 0's dispatch, the plan-level
+        frames equal on every RenderOut field (entry_alive and the work
+        maps too); tile_shards, shard_entries_max/min and their ratio;
+        warm walls, device-busy ms and the top kernels by device time,
+        sharded against unsharded
+     b. K1 and K2 on shard 2's rows of pass 0 (2040 tiles, origins from
+        mid-grid) against their plain versions (K1 0 flips, K2 as in
+        phase 3), device ms from CUDA graph replays against the bound,
+        the plain versions' ms
+     c. `render_with_shard_recovery` with shards (1, 3) dropped: 4080
+        tiles re-rendered under the parity gate, the frame equal to the
+        engine's; recovery wall against the healthy frame's; the next
+        frame healthy (shard_drops 0)
+     d. a 2 frame x 2 tile virtual mesh serves requests 0-2 as one batch
+        (bucket 4, split 2 + 2): each frame bit-equal to the unsharded
+        engine's and within 2e-4 of the all-"torch" plan's render,
+        tile_shards 2, K1 and K2 launched 2 x 2 times a pass
+  5. one {"kernels": [...]} line (K1's and K2's rows also carry phase 8's
+     shard_launches, shard_ms and shard_bound_ms), the card line, and as
+     the last line {"ok": true, "device": {...}}
 
 Exits non-zero without printing a result when CUDA is unavailable or any
 phase fails. `--json PATH` also writes every measurement to PATH.
 `--passes-only` runs phases 1 and 4c alone and prints their sums as its
 last line; `--sessions-only` runs phases 1 and 4g; `--lod-only` runs
-phases 1 and 7; `--offpath-only` runs phase 1, the 1024² setup, phase 6a and
-K3 on the 1024² frame's lists, and prints their times on the line before
-the card line and the contract's last line. A copy of this script placed
+phases 1 and 7; `--shards-only` runs phases 1 and 8 (rendering 8d's
+plain frames itself); `--offpath-only` runs phase 1, the 1024² setup,
+phase 6a and K3 on the 1024² frame's lists, and prints their times on
+the line before the card line and the contract's last line. A copy of this script placed
 at the root of another commit's tree (`git archive`) times that commit's
 kernels on the same operands, so one chip call can run parent, change,
 change, parent, each in its own process. K1, K2 and K3's `ms` are device
@@ -186,11 +212,14 @@ from repro_torch.core.hierarchy import fold_frames  # noqa: E402
 from repro_torch.kernels import build, ops, prtu, render  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.core.coherence import camera_delta  # noqa: E402
+from repro_torch.distributed import (ShardDropInjector,  # noqa: E402
+                                     render_with_shard_recovery)
 from repro_torch.serving import (HD_SCENE_KW, AdmissionRejected,  # noqa: E402
                                  RenderEngine, RenderRequest, Scheduler,
                                  Telemetry, hd1080_cameras, hd1080_engine,
                                  max_batch_for, open_loop_trace,
                                  register_hd1080_scene, replay_open_loop)
+from repro_torch.serving.sharding import tile_mesh  # noqa: E402
 from repro_torch.serving.workloads import (arrival_camera,  # noqa: E402
                                            hd1080_plan, trajectory_cameras)
 
@@ -1900,6 +1929,280 @@ def phase_lod(rung: dict = LOD_RUNG, dev=torch.device("cuda")) -> dict:
                 select_all=select_all, engine=engine)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: tile-sharded and frame-sharded rendering, shard-drop recovery
+# ---------------------------------------------------------------------------
+
+TILE_SHARDS = 4
+SHARD_DROP = (1, 3)
+PROBE_SHARD = 2                      # the shard whose rows 8b times
+
+
+def virtual_mesh(tiles: int, frames: int = 1, dev=None):
+    """A (frames, tiles) mesh whose every device is this one card: the
+    schedule of a multi-card mesh with each shard on the same card."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dev is None else dev
+    return tile_mesh(tiles, frame_shards=frames,
+                     devices=[dev] * (tiles * frames))
+
+
+def shared_frame_equal(got, want) -> bool:
+    """A sharded FrameResult against an unsharded one: image, alpha and
+    every counter the unsharded frame has, bit for bit."""
+    return (torch.equal(got.image, want.image)
+            and torch.equal(got.alpha, want.alpha)
+            and set(want.counters) <= set(got.counters)
+            and all(torch.equal(got.counters[k], want.counters[k])
+                    for k in want.counters))
+
+
+def shard_engine(dev, shards: int, frames: int = 1, max_batch=None,
+                 **scene_kw):
+    """A fresh hd1080 engine on `dev`, tile-sharded `shards` ways over a
+    virtual mesh of the card with `frames` data rows."""
+    eng = RenderEngine(hd1080_plan(), device=dev,
+                       max_batch=max_batch or max_batch_for(
+                           scene_kw.get("height", 1088),
+                           scene_kw.get("width", 1920)),
+                       shard_tiles=shards,
+                       mesh=virtual_mesh(shards, frames, dev))
+    return eng, register_hd1080_scene(eng, **scene_kw)
+
+
+def phase_shards(plain_images=None, dev=torch.device("cuda"),
+                 **scene_kw) -> dict:
+    """Phase 8 on the hd1080 configuration (scene_kw shrinks it, as
+    `register_hd1080_scene` takes it): 8a the 4-shard frame against the
+    unsharded one, 8b K1 and K2 on one shard's rows, 8c shard-drop
+    recovery, 8d frame x tile. Every shard runs on this one card."""
+    base, name = hd1080_engine(device=dev, **scene_kw)
+    sharded, _ = shard_engine(dev, TILE_SHARDS, **scene_kw)
+    cams = hd1080_cameras(N_REQUESTS, width=scene_kw.get("width", 1920),
+                          height=scene_kw.get("height", 1088))
+    reqs = [RenderRequest(name, c, request_id=i) for i, c in enumerate(cams)]
+    frame = timed_phase("shards 8a", phase_shard_frame, base, sharded, name,
+                        reqs)
+    plan = sharded.plan_for(name, cams[0].height, cams[0].width)
+    scene, cam = sharded.scene(name), cams[0].to(dev)
+    kernels = timed_phase("shards 8b", phase_shard_kernels, plan, scene, cam)
+    recovery = timed_phase("shards 8c", phase_shard_recovery, sharded, plan,
+                           scene, cam, frame["base_frames"][0])
+    del sharded
+    composed = timed_phase("shards 8d", phase_frame_by_tile, base, name,
+                           reqs, frame["base_frames"], plain_images, dev,
+                           scene_kw)
+    frame.pop("base_frames")
+    return dict(frame=frame, kernels=kernels, recovery=recovery,
+                frame_by_tile=composed)
+
+
+def phase_shard_frame(base, sharded, name, reqs) -> dict:
+    """8a: requests 1 and 0 through the unsharded and the 4-shard engine,
+    each frame bit-equal; K1 and K2 launched 4 times a pass of request
+    0's dispatch; the plan-level frames equal on every RenderOut field
+    (entry_alive and the work maps included); the occupancy counters;
+    warm walls and device-busy ms of both."""
+    # Request 1 first: its lists overflow the first pass bucket on both
+    # engines, which settles each on the same doubled bucket.
+    base_frames = {}
+    for r in (reqs[1], reqs[0]):
+        want = base.render_batch([r])[0]
+        if r is reqs[0]:
+            reset_launches()
+        got = sharded.render_batch([r])[0]
+        i = r.request_id
+        check(shared_frame_equal(got, want), f"sharded request {i} differs "
+              "from the unsharded frame")
+        base_frames[i] = want
+    launches = launches_now()
+    passes = got.passes_run
+    for kname, n in launches.items():
+        check(n == TILE_SHARDS * passes, f"sharded request 0: {kname} "
+              f"launched {n} times for {passes} passes x {TILE_SHARDS} "
+              "shards")
+    plan = sharded.plan_for(name, reqs[0].camera.height,
+                            reqs[0].camera.width)
+    bplan = base.plan_for(name, reqs[0].camera.height, reqs[0].camera.width)
+    check(dataclasses.replace(plan, shard=bplan.shard) == bplan,
+          "the two engines settled on different plans")
+    cam = reqs[0].camera.to(sharded.device)
+    from repro_torch.distributed.sharding import use_mesh
+    with use_mesh(sharded.mesh):
+        s_out, s_c = plan.render_with_stats(sharded.scene(name), cam,
+                                            enforce=False)
+    b_out, b_c = bplan.render_with_stats(base.scene(name), cam,
+                                         enforce=False)
+    for field in b_out._fields:
+        check(torch.equal(getattr(s_out, field), getattr(b_out, field)),
+              f"sharded plan frame differs on {field}")
+    check(all(torch.equal(s_c[k], b_c[k]) for k in b_c),
+          "sharded plan counters differ")
+    c = {k: float(got.counters[k]) for k in
+         ("tile_shards", "shard_entries_max", "shard_entries_min")}
+    check(c["tile_shards"] == TILE_SHARDS, f"tile_shards {c['tile_shards']}")
+    walls = {"sharded_s": [], "unsharded_s": []}
+    for _ in range(3):
+        walls["unsharded_s"].append(base.render_batch([reqs[0]])[0].render_s)
+        walls["sharded_s"].append(sharded.render_batch([reqs[0]])[0].render_s)
+    busy, top = {}, {}
+    for label, eng in (("unsharded", base), ("sharded", sharded)):
+        busy[label + "_ms"], rows = device_profile(
+            lambda: eng.render_batch([reqs[0]]))
+        top[label] = rows[:12]
+    ratio = c["shard_entries_max"] / max(c["shard_entries_min"], 1.0)
+    log(f"[shards] 8a request 0 at {reqs[0].camera.width}x"
+        f"{reqs[0].camera.height}, {TILE_SHARDS} virtual shards of one card:"
+        f" bit-equal to the unsharded frame (image, alpha, entry_alive, work"
+        f" maps, every counter); tile_shards {int(c['tile_shards'])}, "
+        f"shard entries max {int(c['shard_entries_max'])} min "
+        f"{int(c['shard_entries_min'])} (ratio {ratio:.3f}); launches "
+        f"{launches} for {passes} passes x {TILE_SHARDS} shards")
+    log(f"[shards] 8a warm walls s: sharded {walls['sharded_s']}, unsharded "
+        f"{walls['unsharded_s']}; device busy ms: sharded "
+        f"{busy['sharded_ms']:.3f}, unsharded {busy['unsharded_ms']:.3f}")
+    for label, rows in top.items():
+        log(f"[shards] 8a top device time, {label}: " + "; ".join(
+            f"{k[:50]} {v:.2f} ms" for k, v in rows[:5]))
+    return dict(launches=launches, passes=passes, counters=c,
+                entries_ratio=ratio, walls=walls, device_busy=busy,
+                top_device_ms=top, base_frames=base_frames)
+
+
+def phase_shard_kernels(plan, scene, cam) -> dict:
+    """8b: K1 and K2 on shard PROBE_SHARD's rows of pass 0, the operands
+    that shard's first launches get (tile origins from mid-grid): K1 with
+    0 flips under FULL_FP32 and MIXED, K2 against its plain version as in
+    phase 3; device ms from CUDA graph replays against their bounds, and
+    the plain versions' ms."""
+    ps = plan.preprocess(scene, cam)
+    ts = plan.stage1_compact(ps)[0]
+    grid = ps.grid
+    t = grid.num_tiles // TILE_SHARDS
+    blk = slice(PROBE_SHARD * t, (PROBE_SHARD + 1) * t)
+    dev = cam.fx.device
+    fold = fold_frames([ps.proj], grid).on(dev, grid.tile_origins(dev)[blk])
+    lists, valid = ts.lists[blk], ts.valid[blk]
+    cat_ops = ops.entry_cat_operands(fold.proj, grid, lists, valid,
+                                     tile_origins=fold.tile_origins)
+    for pname, p in (("fp32", FULL_FP32), ("mixed", MIXED)):
+        flips = int((prtu.prtu_entry_cat_mask(*cat_ops, **prec_kw(p))
+                     != prtu.prtu_entry_cat_mask_plain(
+                         *cat_ops, **prec_kw(p))).sum())
+        check(flips == 0, f"K1 on shard {PROBE_SHARD}'s rows: {flips} "
+              f"flips ({pname})")
+    kw = prec_kw(MIXED)
+    mini, _, _ = plan._ctu_tile_rows(fold, grid, [lists], [valid])
+    operands = ops.gather_tile_features(fold.proj, grid, lists, valid, mini,
+                                        tile_origins=fold.tile_origins)
+    pix = operands[0]
+    kb = render.kblock_bound_of(operands[3])
+    p = pix.shape[1]
+    init = (torch.ones((t, p), device=dev),
+            torch.zeros((t, p, 3), device=dev),
+            torch.zeros((t, p), device=dev),
+            torch.zeros((t, p), device=dev))
+    got = render.blend_tiles_fused(*operands, kblock_bound=kb, init=init)
+    want = render.blend_tiles_fused_plain(*operands, kb, *init)
+    err = compare_fused(got, want, operands, f"shard {PROBE_SHARD} pass 0")
+    k1 = {"ms": device_ms(lambda: prtu.prtu_entry_cat_mask(*cat_ops, **kw),
+                          PASS_REPS),
+          "plain_ms": time_ms(lambda: prtu.prtu_entry_cat_mask_plain(
+              *cat_ops, **kw), 1), "max_abs_err": 0.0}
+    k2 = {"ms": device_ms(lambda: render.blend_tiles_fused(
+        *operands, kblock_bound=kb, init=init), PASS_REPS),
+        "plain_ms": time_ms(lambda: render.blend_tiles_fused_plain(
+            *operands, kb, *init), 1), "max_abs_err": err}
+    k1["bound_ms"], k1["bound_by"] = k1_bound(cat_ops)
+    k2["bound_ms"], k2["bound_by"], _ = k2_bound(operands, kb, init, got)
+    origin = [int(x) for x in fold.tile_origins[0].tolist()]
+    log(f"[shards] 8b shard {PROBE_SHARD} pass 0 ({t} tiles, first origin "
+        f"{origin}, {int(valid.sum())} valid entries): K1 {k1['ms']:.4f} ms "
+        f"(bound {k1['bound_ms']:.4f}, plain {k1['plain_ms']:.2f}, 0 flips)"
+        f", K2 {k2['ms']:.4f} ms (bound {k2['bound_ms']:.4f}, plain "
+        f"{k2['plain_ms']:.2f}, max |Δ| {err:.2e})")
+    return dict(tiles=t, first_origin=origin, k1=k1, k2=k2)
+
+
+def phase_shard_recovery(sharded, plan, scene, cam, want) -> dict:
+    """8c: `render_with_shard_recovery` with shards SHARD_DROP dropped:
+    their tiles re-rendered and spliced under the parity gate, the frame
+    equal to the engine's; recovery wall against the healthy frame's; the
+    injector's next frame healthy."""
+    mesh = sharded.mesh
+
+    def run(injector):
+        return sync_wall_ms(lambda: render_with_shard_recovery(
+            plan, scene, cam, injector=injector, mesh=mesh))
+
+    walls = {"healthy_ms": [], "recovery_ms": []}
+    for _ in range(2):
+        walls["healthy_ms"].append(run(ShardDropInjector())[1])
+        walls["recovery_ms"].append(
+            run(ShardDropInjector(drop=SHARD_DROP))[1])
+    inj = ShardDropInjector(drop=SHARD_DROP)
+    (out, c, report), _ = run(inj)
+    n_tiles = plan.grid.make().num_tiles
+    lost = len(SHARD_DROP) * n_tiles // TILE_SHARDS
+    check(report.dropped_shards == SHARD_DROP and report.parity_ok
+          and report.tiles_recovered == lost,
+          f"recovery report {report}, expected {lost} tiles")
+    check(float(c["shard_drops"]) == len(SHARD_DROP)
+          and float(c["tiles_recovered"]) == lost, "recovery counters")
+    check(torch.equal(out.image, want.image)
+          and torch.equal(out.alpha, want.alpha),
+          "the recovered frame differs from the engine's frame")
+    (out2, c2, report2), _ = run(inj)
+    check(report2.dropped_shards == () and float(c2["shard_drops"]) == 0.0
+          and torch.equal(out2.image, want.image),
+          "the frame after the drop is not healthy")
+    log(f"[shards] 8c dropped shards {SHARD_DROP}: {report.tiles_recovered} "
+        f"tiles recovered, parity gate held; walls ms: recovery "
+        f"{walls['recovery_ms']}, healthy {walls['healthy_ms']}; the next "
+        "frame healthy (shard_drops 0)")
+    return dict(tiles_recovered=report.tiles_recovered, walls=walls)
+
+
+def phase_frame_by_tile(base, name, reqs, base_frames, plain_images, dev,
+                        scene_kw) -> dict:
+    """8d: a (2 frame x 2 tile) virtual mesh serves requests 0-2 as one
+    batch (bucket 4, split 2 + 2 over the data rows): each frame bit-equal
+    to the unsharded engine's and within 2e-4 of the all-"torch" plan's
+    render, tile_shards 2; K1 and K2 launched 2 x 2 times a pass."""
+    eng, _ = shard_engine(dev, 2, frames=2, max_batch=4, **scene_kw)
+    reset_launches()
+    got = eng.render_batch(reqs)
+    launches = launches_now()
+    passes = got[0].passes_run
+    for kname, n in launches.items():
+        check(n == 4 * passes, f"frame x tile: {kname} launched {n} times "
+              f"for {passes} passes x 2 rows x 2 shards")
+    check((got[0].batch_size, got[0].bucket_size) == (3, 4),
+          f"batch {got[0].batch_size}, bucket {got[0].bucket_size}")
+    rows = []
+    for r, g in zip(reqs, got):
+        i = r.request_id
+        want = (base_frames[i] if i in base_frames
+                else base.render_batch([r])[0])
+        check(shared_frame_equal(g, want), f"frame x tile request {i} "
+              "differs from the unsharded frame")
+        check(float(g.counters["tile_shards"]) == 2.0, "tile_shards != 2")
+        plain = (plain_images[i] if plain_images is not None else
+                 plain_render(base, name, r.camera).image)
+        err = float((g.image - plain).abs().max())
+        check(err <= 2e-4, f"frame x tile request {i}: {err} from the "
+              "plain render")
+        rows.append(dict(request=i, max_abs_err=err,
+                         entries_max=float(g.counters["shard_entries_max"]),
+                         entries_min=float(g.counters["shard_entries_min"])))
+    log(f"[shards] 8d 2 frame x 2 tile shards, batch of 3 in bucket 4: "
+        f"every frame bit-equal to the unsharded engine's, max |Δ| vs plain "
+        f"{max(r['max_abs_err'] for r in rows):.2e}; launches {launches} "
+        f"for {passes} passes; wall {got[0].render_s:.3f} s")
+    return dict(launches=launches, passes=passes, rows=rows,
+                wall_s=got[0].render_s)
+
+
 def write_json(path, summary: dict) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -1971,6 +2274,15 @@ def lod_only(summary: dict, json_path) -> int:
     return 0
 
 
+def shards_only(summary: dict, json_path) -> int:
+    """Phase 8 alone. Prints the card line and the contract's last line."""
+    summary["shards"] = timed_phase("shards", phase_shards)
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
 def ok_line() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1993,6 +2305,10 @@ def main() -> int:
     parser.add_argument("--lod-only", action="store_true",
                         help="run only the build and phase 7 (LOD at the "
                         "4M-Gaussian rung)")
+    parser.add_argument("--shards-only", action="store_true",
+                        help="run only the build and phase 8 (tile- and "
+                        "frame-sharded 1920x1088 frames, shard-drop "
+                        "recovery)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2015,6 +2331,8 @@ def main() -> int:
         return sessions_only(summary, args.json)
     if args.lod_only:
         return lod_only(summary, args.json)
+    if args.shards_only:
+        return shards_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -2045,7 +2363,6 @@ def main() -> int:
         "passes", phase_passes, plan, engine.scene(name), cam)
     summary["batch"] = timed_phase("batch", phase_batch, engine, name,
                                    plain_images)
-    del plain_images
     summary["trace"] = timed_phase("trace", phase_trace, engine, name)
     summary["scheduler"] = timed_phase(
         "scheduler", phase_scheduler, engine, name,
@@ -2071,6 +2388,11 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     summary["lod"] = timed_phase("lod", phase_lod)
+    torch.cuda.empty_cache()
+    summary["shards"] = timed_phase("shards", phase_shards, plain_images)
+    del plain_images
+    shard_rows = {"prtu_entry_cat_mask": summary["shards"]["kernels"]["k1"],
+                  "blend_tiles_fused": summary["shards"]["kernels"]["k2"]}
 
     kernels = []
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2089,6 +2411,13 @@ def main() -> int:
             max_abs_err=res["max_abs_err"], ms=res["ms"],
             plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
             bound_by=res["bound_by"], library_ms=None, phase="ok"))
+        if kname in shard_rows:
+            # Phase 8: the 4-shard frame's launches, and the kernel on one
+            # shard's rows.
+            kernels[-1].update(
+                shard_launches=summary["shards"]["frame"]["launches"][kname],
+                shard_ms=shard_rows[kname]["ms"],
+                shard_bound_ms=shard_rows[kname]["bound_ms"])
     write_json(args.json, summary)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,14 +11,18 @@ Layout mirrors the JAX reference package module for module:
     lod/       camera-dependent LOD: build, cluster selection, gather
     kernels/   CUDA kernels (csrc/), their wrappers and plain versions
     obs/       span tracing, the metrics registry and exporters
-    serving/   RenderEngine (batched), telemetry, the deadline scheduler
-               and the 1080p workload
+    distributed/  the device mesh, the logical-axis rules, shard-drop
+               recovery and the straggler monitor
+    serving/   RenderEngine (batched, optionally over a mesh: frame and
+               tile sharding), telemetry, the deadline scheduler and the
+               1080p workload
     convert    numpy -> port types, for parity tests
 """
 from repro_torch.core import (FLICKER_CONFIG, GSCORE_CONFIG, VANILLA_CONFIG,
                               GaussianScene, GridConfig, OverflowPolicy,
                               RasterConfig, RenderConfig, RenderPlan,
-                              Renderer, StreamConfig, TestConfig,
+                              Renderer, ShardConfig, StreamConfig,
+                              TestConfig,
                               SH_C0, load_ply, orbit_camera, random_scene,
                               save_ply, ssim)
 from repro_torch.serving import RenderEngine, RenderRequest, hd1080_engine
@@ -26,7 +30,8 @@ from repro_torch.serving import RenderEngine, RenderRequest, hd1080_engine
 __all__ = [
     "FLICKER_CONFIG", "GSCORE_CONFIG", "VANILLA_CONFIG", "RenderConfig",
     "GaussianScene", "GridConfig", "OverflowPolicy", "RasterConfig",
-    "RenderPlan", "Renderer", "StreamConfig", "TestConfig", "orbit_camera",
+    "RenderPlan", "Renderer", "ShardConfig", "StreamConfig", "TestConfig",
+    "orbit_camera",
     "random_scene", "SH_C0", "load_ply", "save_ply", "ssim", "RenderEngine",
     "RenderRequest", "hd1080_engine",
 ]

@@ -14,10 +14,11 @@ from repro_torch.core.hierarchy import (HierarchyOut, StreamHierarchyOut,
                                         stream_entry_test)
 from repro_torch.core.renderer import (GridConfig, OverflowPolicy,
                                        ProjectedScene, RasterConfig,
-                                       RenderPlan, Renderer, StreamConfig,
+                                       RenderPlan, Renderer, ShardConfig,
+                                       StageSpec, StreamConfig,
                                        StreamOverflowError,
                                        StreamOverflowWarning, TestConfig,
-                                       TileStream, cat_mask_elems,
+                                       TileStream, as_plan, cat_mask_elems,
                                        frame_counters, measure_k_max)
 from repro_torch.core.io import SH_C0, load_ply, save_ply
 from repro_torch.core.metrics import psnr, ssim
@@ -38,7 +39,8 @@ __all__ = [
     "minitile_cat_mask", "pr_gaussian_weight", "HierarchyOut",
     "StreamHierarchyOut", "baseline_masks", "hierarchical_test",
     "stream_entry_test", "GridConfig", "OverflowPolicy", "ProjectedScene",
-    "RasterConfig", "RenderPlan", "Renderer", "StreamConfig",
+    "RasterConfig", "RenderPlan", "Renderer", "ShardConfig", "StageSpec",
+    "StreamConfig", "as_plan",
     "StreamOverflowError", "StreamOverflowWarning", "TestConfig",
     "TileStream", "cat_mask_elems", "frame_counters", "measure_k_max",
     "SH_C0", "load_ply", "save_ply", "psnr", "ssim", "CoherenceConfig",

@@ -26,6 +26,9 @@ A batch of B frames runs the stream CTU once per pass for all frames
 b's tile t is row b·T + t and its list entry i indexes Gaussian b·N + i.
 Every step of the test is per entry, so a frame's rows are the rows its
 own test would give; the counters are reduced per frame from its rows.
+A fold may also hold a block of each frame's tiles (`FrameFold.on`: a
+tile shard, or the rows a recovery re-renders): `entry_test_rows` runs the
+test on such a block with its own tile origins.
 """
 from __future__ import annotations
 
@@ -186,15 +189,18 @@ def baseline_masks(proj: Projected, grid: TileGrid, method: str):
 
 class FrameFold(NamedTuple):
     """B frames of one grid folded into one tile axis (see the module
-    docstring). With one frame the fold is that frame, uncopied."""
+    docstring). With one frame the fold is that frame, uncopied. `tiles`
+    is the rows each frame contributes: the grid's tile count, or a
+    block's (`on`)."""
     proj: Projected               # the frames' Projected, concatenated on N
-    tile_origins: torch.Tensor    # (B·T, 2) each frame's tile origins
+    tile_origins: torch.Tensor    # (B·tiles, 2) each frame's tile origins
     frames: int
     n: int                        # Gaussians per frame
+    tiles: int                    # tile rows per frame
 
-    def rows(self, b: int, tiles: int) -> slice:
-        """Frame b's rows of a folded (B·T, ...) tensor."""
-        return slice(b * tiles, (b + 1) * tiles)
+    def rows(self, b: int) -> slice:
+        """Frame b's rows of a folded (B·tiles, ...) tensor."""
+        return slice(b * self.tiles, (b + 1) * self.tiles)
 
     def ids(self, lists) -> torch.Tensor:
         """(B·T, K) fold indices of per-frame (T, K) lists: frame b's
@@ -212,17 +218,28 @@ class FrameFold(NamedTuple):
             return None
         return xs[0] if self.frames == 1 else torch.cat(xs)
 
+    def on(self, device, origins: torch.Tensor) -> "FrameFold":
+        """The same frames restricted to the tiles at `origins` ((t, 2),
+        one frame's) of every frame, with the Gaussians on `device` (no
+        copy where they already are)."""
+        proj = Projected(*(x.to(device) for x in self.proj))
+        origins = origins.to(device)
+        return FrameFold(proj, origins if self.frames == 1 else
+                         origins.repeat(self.frames, 1), self.frames,
+                         self.n, origins.shape[0])
+
 
 def fold_frames(projs, grid: TileGrid) -> FrameFold:
     """Fold the `Projected` of B frames of one scene (one Gaussian count)
     on `grid` for one CTU and one blend launch per pass."""
     projs = list(projs)
     origins = grid.tile_origins(projs[0].depth.device)
+    t = grid.num_tiles
     if len(projs) == 1:
-        return FrameFold(projs[0], origins, 1, projs[0].depth.shape[0])
+        return FrameFold(projs[0], origins, 1, projs[0].depth.shape[0], t)
     proj = Projected(*(torch.cat(f) for f in zip(*projs)))
     return FrameFold(proj, origins.repeat(len(projs), 1), len(projs),
-                     projs[0].depth.shape[0])
+                     projs[0].depth.shape[0], t)
 
 
 class StreamHierarchyOut(NamedTuple):
@@ -319,6 +336,31 @@ def stream_entry_test_frames(fold: FrameFold, projs, grid: TileGrid, lists,
     their fold: projs, lists, valid, overflow hold one item per frame.
     Returns one `StreamHierarchyOut` per frame, its masks rows of the
     folded ones."""
+    entry_sub, entry_mini, sub_hits, mini_hits = entry_test_rows(
+        fold, grid, lists, valid, mode, prec, spiky_threshold, cat_fn=cat_fn)
+    outs = []
+    for b in range(fold.frames):
+        rows = fold.rows(b)
+        counters = stream_entry_counters(projs[b], grid, lists[b], valid[b],
+                                         sub_hits[rows], mini_hits[rows],
+                                         mode, spiky_threshold)
+        outs.append(StreamHierarchyOut(
+            lists=lists[b], valid=valid[b], entry_sub_mask=entry_sub[rows],
+            entry_mini_mask=entry_mini[rows], overflow=overflow[b],
+            counters=counters))
+    return outs
+
+
+def entry_test_rows(fold: FrameFold, grid: TileGrid, lists, valid,
+                    mode: SamplingMode = SamplingMode.SMOOTH_FOCUSED,
+                    prec: PrecisionScheme = FULL_FP32,
+                    spiky_threshold: float = 3.0, *,
+                    cat_fn: Optional[Callable] = None):
+    """The CTU on the fold's rows (one CAT evaluation: one K1 launch when
+    `cat_fn` is the kernel's): lists and valid hold each frame's rows of
+    the fold's tiles. Returns (entry_sub (B·t, K, Sp), entry_mini
+    (B·t, K, Mt), sub_hits (B·t, K), mini_hits (B·t, K)), the hits as
+    int64 counts."""
     ids, fvalid = fold.ids(lists), fold.cat(valid)
     origins = fold.tile_origins
     entry_sub = entry_subtile_mask(fold.proj, grid, ids, fvalid, origins)
@@ -328,17 +370,6 @@ def stream_entry_test_frames(fold: FrameFold, projs, grid: TileGrid, lists,
     else:
         cat = cat_fn(fold.proj, grid, ids, fvalid, tile_origins=origins)
     gate = entry_sub[:, :, grid.subtile_of_minitile_local(ids.device)]
-    entry_mini = cat & gate & fvalid[:, :, None]               # (B·T, K, Mt)
-    sub_hits = entry_sub.sum(dim=-1)                           # (B·T, K)
-    mini_hits = entry_mini.sum(dim=-1)
-    outs = []
-    for b in range(fold.frames):
-        rows = fold.rows(b, grid.num_tiles)
-        counters = stream_entry_counters(projs[b], grid, lists[b], valid[b],
-                                         sub_hits[rows], mini_hits[rows],
-                                         mode, spiky_threshold)
-        outs.append(StreamHierarchyOut(
-            lists=lists[b], valid=valid[b], entry_sub_mask=entry_sub[rows],
-            entry_mini_mask=entry_mini[rows], overflow=overflow[b],
-            counters=counters))
-    return outs
+    entry_mini = cat & gate & fvalid[:, :, None]               # (B·t, K, Mt)
+    return entry_sub, entry_mini, entry_sub.sum(dim=-1), \
+        entry_mini.sum(dim=-1)

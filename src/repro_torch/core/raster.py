@@ -141,6 +141,16 @@ def untile(grid: TileGrid, x: torch.Tensor) -> torch.Tensor:
     return x.reshape(grid.height, grid.width, *c)
 
 
+def retile(grid: TileGrid, x: torch.Tensor) -> torch.Tensor:
+    """Inverse of `untile`: image-space (H, W, ...) back to per-tile rows
+    (T, P, ...) in the row-major within-tile pixel layout. Used to splice
+    re-rendered tile rows into an already-untiled frame (shard recovery)."""
+    c = x.shape[2:]
+    x = x.reshape(grid.tiles_y, grid.tile, grid.tiles_x, grid.tile, *c)
+    x = x.transpose(1, 2)  # (ty, tx, tile, tile, ...)
+    return x.reshape(grid.num_tiles, grid.tile ** 2, *c)
+
+
 def _pixel_offsets(tile: int, device="cpu") -> torch.Tensor:
     """(P, 2) float32 pixel-center offsets, row-major within the tile."""
     r = torch.arange(tile, device=device)

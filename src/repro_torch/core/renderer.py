@@ -57,6 +57,16 @@ For a batch the ctu and blend attributes are sums over its frames and the
 finalize and root ones per-frame means; with one frame they are the
 reference's eager tree and attributes.
 
+`RenderPlan.shard` (`ShardConfig`, default one shard) splits the
+post-Stage-1 tail over the tile axis of the active mesh
+(`repro_torch.distributed.sharding.use_mesh`): shard k runs the CTU and
+the blend of rows k·T/S..(k+1)·T/S-1 of every frame and pass on its mesh
+device (one K1 and one K2 launch a pass per shard), the rows are gathered
+once, and the counters are computed on the gathered integer hits and
+per-tile floats by the single-device expressions, so the sharded frame is
+bit-identical to the single-device one. `render_tile_subset` re-renders
+any rows alone (shard-drop recovery, `repro_torch.distributed.fault`).
+
 `RenderPlan.dataflow` selects how the hierarchy materializes between
 Stage 1 and the CTU: "stream" (the default: compact first, CTU on
 survivors only, O(T·k_max·16) masks) or "dense" (the O(regions·N) parity
@@ -67,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 import warnings
 from typing import Optional, TYPE_CHECKING
 
@@ -178,6 +189,36 @@ class RasterConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardConfig:
+    """Tile-axis device sharding of the post-Stage-1 pipeline.
+
+    With tile_shards > 1 the plan partitions the per-tile survivor streams
+    (`TileStream` rows, every spill pass) into `tile_shards` contiguous
+    blocks over the mesh axis the logical `axis` resolves to
+    (`distributed.sharding.resolve`; "tile" -> the `model` mesh axis) and
+    runs CTU + blend per shard on that shard's device, gathering exactly
+    once before the finalize: the multi-PRTU parallel datapath of the
+    paper, mapped onto devices. Tiles are independent after compaction, so
+    the sharded render is bit-identical to the single-device path on
+    images, `entry_alive` and every counter.
+
+    Requirements: the stream dataflow with the CAT method, a tile count
+    divisible by tile_shards, and an active mesh
+    (`distributed.sharding.use_mesh` or
+    `serving.RenderEngine(shard_tiles=...)`) whose resolved axis has size
+    tile_shards. Part of the plan's value, so the serving plan cache keys
+    on it like every other stage config.
+    """
+    tile_shards: int = 1
+    axis: str = "tile"
+
+    def __post_init__(self):
+        if self.tile_shards < 1:
+            raise ValueError(
+                f"tile_shards must be >= 1, got {self.tile_shards}")
+
+
+@dataclasses.dataclass(frozen=True)
 class ProjectedScene:
     """Preprocess-stage output: screen-space Gaussians + the tile grid."""
     proj: Projected
@@ -204,23 +245,43 @@ class TileStream:
 
 
 @dataclasses.dataclass(frozen=True)
+class StageSpec:
+    """Introspection record for one plan stage."""
+    name: str
+    backend: str
+    description: str
+
+
+@dataclasses.dataclass(frozen=True)
 class RenderPlan:
     """An executable, hashable composition of the render stages. dataflow
     is "stream" (survivor streams, the default) or "dense" (the parity
-    oracle). lod (default None) is the optional LOD stage's
-    `repro_torch.lod.LODConfig`, read only by `render_lod_with_stats`.
-    Tensors stay on the device of the scene and camera they are given."""
+    oracle). shard (default one shard) is the tile-axis sharding of the
+    post-Stage-1 tail (`ShardConfig`). lod (default None) is the optional
+    LOD stage's `repro_torch.lod.LODConfig`, read only by
+    `render_lod_with_stats`. Tensors stay on the device of the scene and
+    camera they are given; a sharded plan's shards run on the active
+    mesh's devices and gather back to that device."""
     grid: GridConfig = GridConfig()
     test: TestConfig = TestConfig()
     stream: StreamConfig = StreamConfig()
     raster: RasterConfig = RasterConfig()
     dataflow: str = "stream"                  # stream | dense
+    shard: ShardConfig = ShardConfig()
     lod: Optional["LODConfig"] = None
 
     def __post_init__(self):
         if self.dataflow not in ("stream", "dense"):
             raise ValueError(f"unknown dataflow {self.dataflow!r} "
                              "(expected 'stream' or 'dense')")
+        if self.shard.tile_shards > 1:
+            if self.dataflow != "stream" or self.test.method != "cat":
+                raise ValueError(
+                    "tile sharding requires the stream dataflow with the "
+                    f"'cat' method (got dataflow={self.dataflow!r}, "
+                    f"method={self.test.method!r}) — the dense oracle and "
+                    "the baselines materialize (regions, N) masks that the "
+                    "per-tile partitioning cannot split")
 
     def preprocess(self, scene: GaussianScene, camera) -> ProjectedScene:
         """Projection + 3σ screen-space footprints (preprocessing core)."""
@@ -307,16 +368,20 @@ class RenderPlan:
         dense oracle and the baselines gather per frame."""
         if self.test.method != "cat" or self.dataflow != "stream":
             return [self.ctu(ps, ts) for ps, ts in zip(pss, tss)]
-        cat_fn = None
-        if self.test.backend == "cuda":
-            from repro_torch.kernels import ops as kops
-            cat_fn = kops.entry_cat_fn(self.test.mode, self.test.precision,
-                                       self.test.spiky_threshold)
         return H.stream_entry_test_frames(
             fold, [ps.proj for ps in pss], pss[0].grid,
             [ts.lists for ts in tss], [ts.valid for ts in tss],
             [ts.overflow for ts in tss], self.test.mode,
-            self.test.precision, self.test.spiky_threshold, cat_fn=cat_fn)
+            self.test.precision, self.test.spiky_threshold,
+            cat_fn=self._cat_fn())
+
+    def _cat_fn(self):
+        """The entry CAT of the "cuda" backend (K1), None for "torch"."""
+        if self.test.backend != "cuda":
+            return None
+        from repro_torch.kernels import ops as kops
+        return kops.entry_cat_fn(self.test.mode, self.test.precision,
+                                 self.test.spiky_threshold)
 
     def _blend_passes(self, ps: ProjectedScene, houts):
         """Blend one frame's spill passes front to back from one carried
@@ -332,66 +397,85 @@ class RenderPlan:
         (one K2 launch when fused), each under a `blend[pass=i]` span.
         houts: per frame, its per-pass `StreamHierarchyOut`s. Returns one
         (RenderOut, blend counters, per-pass entry_alive list) per frame."""
-        device = fold.proj.depth.device
         n_pass = len(houts[0])
-        passes = [[(h[i].lists, h[i].valid, h[i].entry_mini_mask)
-                   for h in houts] for i in range(n_pass)]
-        overflows = [h[0].overflow for h in houts]
-        prev = [0.0, 0.0]
+        note = _BlendNote(tracer)
+        state, alive_parts, kparts, kb_total = None, [], [], 0
+        for i in range(n_pass):
+            lists, valid, masks = zip(*((h[i].lists, h[i].valid,
+                                         h[i].entry_mini_mask)
+                                        for h in houts))
+            with tracer.span("blend", {"pass": i,
+                                       "backend": self._blend_backend()}
+                             ) as sp:
+                state, alive, kproc, kb = self._blend_step(
+                    fold, grid, fold.ids(lists), fold.cat(valid),
+                    fold.cat(masks), state)
+                note(sp, [state], [alive])
+            alive_parts.append(alive)
+            kparts.append(kproc)
+            kb_total += kb
+        return self._finalize_blend_frames(
+            grid, fold.frames, state, alive_parts, kparts, kb_total,
+            [h[0].overflow for h in houts], houts[0][0].lists.shape[1])
 
-        def note(sp, processed, blended, alive):
-            tracer.block((processed, blended, alive))
-            if tracer.enabled:
-                proc = float(processed.sum(dtype=torch.float64))
-                bl = float(blended.sum(dtype=torch.float64))
-                sp.set(processed_delta=proc - prev[0],
-                       blended_delta=bl - prev[1],
-                       entries_alive=float(alive.sum()))
-                prev[:] = [proc, bl]
+    def _blend_backend(self) -> str:
+        return "cuda" if self.raster.fused else "torch"
 
+    def _blend_step(self, fold: H.FrameFold, grid: TileGrid, ids, valid,
+                    masks, state):
+        """One pass's blend over the fold's rows, resuming from `state`
+        (None on the first pass): one K2 launch when fused, else the
+        `raster.blend_pass` fold. Returns (state, entry_alive (B·t, K),
+        kblocks_processed (B·t,) or None, kblocks_total). Either state
+        ends with its processed and blended maps."""
         if self.raster.fused:
             from repro_torch.kernels import ops as kops
-            results = kops.render_tiles_fused_frames(
-                fold, grid, passes, self.raster.background, overflows,
-                span_cb=lambda i: tracer.span(
-                    "blend", {"pass": i, "backend": "cuda"}),
-                pass_cb=lambda sp, fb: note(sp, fb.processed, fb.blended,
-                                            fb.entry_alive))
+            fb = kops.blend_fused_rows(fold, grid, ids, valid, masks, state)
+            return ((fb.trans, fb.rgb, fb.processed, fb.blended),
+                    fb.entry_alive, fb.kblocks_processed, fb.kblocks_total)
+        if state is None:
+            state = raster.init_blend_state(fold.frames * fold.tiles,
+                                            grid.tile ** 2, ids.device)
+        state, alive = raster.blend_pass(fold.proj, grid, ids, valid, masks,
+                                         state,
+                                         tile_origins=fold.tile_origins)
+        return state, alive, None, 0
+
+    def _finalize_blend_frames(self, grid: TileGrid, frames: int, state,
+                               alive_parts, kparts, kb_total, overflows,
+                               k: int):
+        """Per-frame (RenderOut, blend counters, per-pass entry_alive list)
+        from the carried state of B frames' full rows (frame b's tiles at
+        rows b·T..(b+1)·T-1) after the last of the passes of k slots."""
+        n_pass = len(alive_parts)
+        bg = self.raster.background
+        if self.raster.fused:
+            from repro_torch.kernels import ops as kops
+            results = kops.finalize_fused_frames(
+                grid, frames, state, bg, overflows, alive_parts, kparts,
+                kb_total)
         else:
-            state = raster.init_blend_state(fold.frames * grid.num_tiles,
-                                            grid.tile ** 2, device)
-            alive_parts = []
-            for i, frames in enumerate(passes):
-                lists, valid, masks = zip(*frames)
-                with tracer.span("blend",
-                                 {"pass": i, "backend": "torch"}) as sp:
-                    state, alive = raster.blend_pass(
-                        fold.proj, grid, fold.ids(lists), fold.cat(valid),
-                        fold.cat(masks), state,
-                        tile_origins=fold.tile_origins)
-                    note(sp, state.processed, state.blended, alive)
-                alive_parts.append(alive)
+            device = state.trans.device
             entry_alive = torch.cat(alive_parts, dim=1)
-            # The unfused sweep always walks every padded list slot.
-            swept = float(sum(frames[0][0].shape[1] for frames in passes))
+            t = grid.num_tiles
             results = []
-            for b in range(fold.frames):
-                rows = fold.rows(b, grid.num_tiles)
+            for b in range(frames):
+                rows = slice(b * t, (b + 1) * t)
                 out = raster.finalize_blend(
-                    grid, raster.BlendState(*(x[rows] for x in state)),
-                    self.raster.background, overflows[b], entry_alive[rows])
+                    grid, raster.BlendState(*(x[rows] for x in state)), bg,
+                    overflows[b], entry_alive[rows])
+                # The unfused sweep always walks every padded list slot.
                 results.append((out, dict(swept_per_pixel=torch.tensor(
-                    swept, device=device))))
-        frames = []
+                    float(n_pass * k), device=device))))
+        out_frames = []
         for out, counters in results:
             counters = dict(counters)
             counters["processed_per_pixel"] = out.processed_per_pixel.mean()
             counters["blended_per_pixel"] = out.blended_per_pixel.mean()
-            k = out.entry_alive.shape[1] // n_pass
-            alive_parts = [out.entry_alive[:, i * k:(i + 1) * k]
-                           for i in range(n_pass)]
-            frames.append((out, counters, alive_parts))
-        return frames
+            out_frames.append((out, counters, [
+                out.entry_alive[:, i * k:(i + 1) * k]
+                for i in range(n_pass)]))
+        return out_frames
 
     def _merge_hout_counters(self, houts) -> dict:
         """Fold per-pass CTU counters into frame totals. The stream CAT's
@@ -521,7 +605,8 @@ class RenderPlan:
                 root.set(dataflow=self.dataflow, method=self.test.method,
                          k_max=self.stream.k_max, n_passes=self.n_passes,
                          overflow_policy=self.stream.overflow.value,
-                         fused=self.raster.fused, tile_shards=1,
+                         fused=self.raster.fused,
+                         tile_shards=self.shard.tile_shards,
                          height=self.grid.height, width=self.grid.width,
                          plan_first_call=tracer.mark_first(self),
                          traced=False, frames=batch)
@@ -561,8 +646,12 @@ class RenderPlan:
     def _render_streams_frames(self, pss, streams, tracer, root=None):
         """The post-Stage-1 tail of B frames (`pss`, and per frame its
         tuple of pass streams): pass i's CTU and blend once over the frame
-        fold, then the per-frame counter merge and finalize. Returns one
-        (RenderOut, counters dict) per frame."""
+        fold, then the per-frame counter merge and finalize. With
+        `ShardConfig.tile_shards > 1` the tail runs tile-sharded over the
+        active mesh (`_render_streams_sharded`, bit-identical output).
+        Returns one (RenderOut, counters dict) per frame."""
+        if self.shard.tile_shards > 1:
+            return self._render_streams_sharded(pss, streams, tracer, root)
         grid = pss[0].grid
         batch = len(pss)
         fold = H.fold_frames([ps.proj for ps in pss], grid)
@@ -581,36 +670,51 @@ class RenderPlan:
             for frame, h in zip(houts, pass_h):
                 frame.append(h)
         counters = [self._merge_hout_counters(h) for h in houts]
-        cat = self.test.method == "cat"
-        if cat:
-            for ps, c in zip(pss, counters):
-                c["cat_mask_bytes"] = torch.tensor(
-                    float(cat_mask_elems(ps.grid, ps.proj.depth.shape[0],
-                                         self.stream.k_max, self.dataflow)),
-                    device=ps.proj.depth.device)
         blended = self._blend_frames(fold, grid, houts, tracer)
+        return self._finish_frames(
+            pss, streams, counters, blended,
+            lambda b, p, alive: self._effective_counters(
+                pss[b], streams[b][p], houts[b][p], alive), tracer, root)
+
+    def _finish_frames(self, pss, streams, counters, blended, effective,
+                       tracer, root, extra=None):
+        """The shared finalize of B frames: blend counters, the
+        termination-aware counters (effective(b, pass, entry_alive)), the
+        spill pass count and `extra(b)`'s counters join each frame's CTU
+        counters under the `finalize` span. Returns one (RenderOut,
+        counters) per frame."""
+        cat = self.test.method == "cat"
         frames = []
         with tracer.span("finalize") as sp:
-            for ps, ts, h, c, (out, blend_counters, alive_parts) in zip(
-                    pss, streams, houts, counters, blended):
+            for b, (ps, ts, c, (out, blend_counters, alive_parts)) in \
+                    enumerate(zip(pss, streams, counters, blended)):
+                if cat:
+                    c["cat_mask_bytes"] = torch.tensor(
+                        float(cat_mask_elems(ps.grid, ps.proj.depth.shape[0],
+                                             self.stream.k_max,
+                                             self.dataflow)),
+                        device=ps.proj.depth.device)
                 c.update(blend_counters)
                 if cat:
                     eff: dict = {}
-                    for t, hout, alive in zip(ts, h, alive_parts):
-                        for key, v in self._effective_counters(
-                                ps, t, hout, alive).items():
+                    for p, alive in enumerate(alive_parts):
+                        for key, v in effective(b, p, alive).items():
                             eff[key] = v if key not in eff else eff[key] + v
                     c.update(eff)
                 # Passes that actually carried entries (>= 1 even on an
                 # empty frame).
-                used = sum(int(x.valid.any()) for x in h)
+                used = sum(int(x.valid.any()) for x in ts)
                 c["spill_passes"] = torch.tensor(
                     float(max(used, 1)), device=ps.proj.depth.device)
+                if extra is not None:
+                    c.update(extra(b))
                 frames.append((out, c))
             tracer.block(frames)
             if tracer.enabled:
                 sp.set(spill_passes=_frame_mean(frames, "spill_passes"),
                        overflow=any(bool(o.overflow) for o, _ in frames))
+                if self.shard.tile_shards > 1:
+                    sp.set(tile_shards=self.shard.tile_shards, sharded=True)
                 if root is not None:
                     root.set(**{k: _frame_mean(frames, k) for k in
                                 ("processed_per_pixel", "blended_per_pixel",
@@ -618,6 +722,258 @@ class RenderPlan:
                                 if k in frames[0][1]
                                 and frames[0][1][k].dim() == 0})
         return frames
+
+    # -- tile-row primitives (one shard's body = a row subset) --------------
+
+    def _ctu_tile_rows(self, fold: H.FrameFold, grid: TileGrid, lists,
+                       valid):
+        """CTU on the fold's rows: per-entry CAT mask and hit counts.
+
+        The per-shard body of the tile-sharded CTU and the row kernel of
+        `render_tile_subset`: the same evaluation the single-device CTU
+        runs on the full grid (`hierarchy.entry_test_rows`, one K1 launch
+        on the "cuda" backend), on the rows whose origins the fold holds.
+        lists, valid: each frame's rows. Returns (entry_mini (B·t, K, Mt),
+        sub_hits (B·t, K), mini_hits (B·t, K))."""
+        _, mini, sub_hits, mini_hits = H.entry_test_rows(
+            fold, grid, lists, valid, self.test.mode, self.test.precision,
+            self.test.spiky_threshold, cat_fn=self._cat_fn())
+        return mini, sub_hits, mini_hits
+
+    def _blend_tile_rows(self, fold: H.FrameFold, grid: TileGrid,
+                         pass_rows):
+        """Blend fold over the spill passes on the fold's rows.
+
+        pass_rows: [(lists, valid, entry_mini), ...] per pass, folded rows.
+        Returns (state, alive_parts, kblock_parts): the fused (trans, rgb,
+        processed, blended) carry or the unfused `raster.BlendState`, the
+        per-pass (B·t, K) entry_alive and, fused, the per-pass (B·t,)
+        kblocks_processed (None unfused). Tiles blend independently, so
+        these rows equal the same rows of the full-grid fold exactly."""
+        state, alive, kproc = None, [], []
+        for lists, valid, mini in pass_rows:
+            state, a, kp, _ = self._blend_step(fold, grid, lists, valid,
+                                               mini, state)
+            alive.append(a)
+            kproc.append(kp)
+        return state, alive, (kproc if self.raster.fused else None)
+
+    def _render_streams_sharded(self, pss, streams, tracer, root=None):
+        """Tile-sharded post-Stage-1 tail over the active mesh.
+
+        The per-tile survivor streams of every frame and spill pass are
+        partitioned into `shard.tile_shards` contiguous row blocks over the
+        mesh axis the logical shard axis resolves to. Shard k runs the CTU
+        and the blend of its rows on its device (one K1 and one K2 launch a
+        pass), emitting its blend-state rows, entry_alive rows, integer
+        per-entry hit counts and, fused, per-tile K-block counts. One
+        gather (`.to` the frames' device, then `torch.cat`: integers and
+        independent per-tile floats move exactly) feeds the finalize the
+        single-device path runs, and the counters are evaluated by the
+        same expressions on the gathered hit counts
+        (`hierarchy.stream_entry_counters`); no float is summed per shard.
+        That is why the sharded render is bit-identical on images,
+        entry_alive and every counter. The frames' `ctu[pass=i]` and
+        `blend[pass=i]` spans each cover every shard's launch of the pass
+        and carry `sharded` and `tile_shards`.
+
+        With a data axis in the mesh, the shards run on its first row
+        (the serving engine splits a batch over the data axis and enters
+        each row's sub-mesh). Eager PyTorch has no counterpart of the
+        reference's "must run under jax.jit" requirement.
+        """
+        from repro_torch.distributed import sharding as dshard
+
+        grid = pss[0].grid
+        s = self.shard.tile_shards
+        mesh = dshard.active_mesh()
+        if mesh is None:
+            raise RuntimeError(
+                f"RenderPlan has shard.tile_shards={s} but no active mesh; "
+                "wrap the render in distributed.sharding.use_mesh(mesh) "
+                "(serving.RenderEngine does this when constructed with "
+                "shard_tiles)")
+        axes = dshard.resolve((self.shard.axis,), mesh)[0]
+        axes_tuple = (axes,) if isinstance(axes, str) else tuple(axes)
+        axis_size = math.prod(mesh.shape[a] for a in axes_tuple)
+        if axis_size != s:
+            raise ValueError(
+                f"shard.tile_shards={s} but the mesh's "
+                f"{self.shard.axis!r} axis ({axes_tuple} on mesh "
+                f"{dict(mesh.shape)}) has size {axis_size}")
+        if grid.num_tiles % s != 0:
+            raise ValueError(
+                f"num_tiles={grid.num_tiles} is not divisible by "
+                f"tile_shards={s}")
+
+        batch, n_pass = len(pss), len(streams[0])
+        t = grid.num_tiles // s
+        primary = pss[0].proj.depth.device
+        # The devices along the shard axis, at index 0 of the other one.
+        devices = (mesh.devices[0] if axes_tuple == ("model",)
+                   else tuple(row[0] for row in mesh.devices))
+        fold = H.fold_frames([ps.proj for ps in pss], grid)
+        origins = grid.tile_origins(primary)
+        blocks = [slice(k * t, (k + 1) * t) for k in range(s)]
+        shards = [fold.on(dev, origins[blk])
+                  for dev, blk in zip(devices, blocks)]
+        # rows[k][p]: shard k's (lists, valid) of every frame in pass p.
+        rows = [[([st[p].lists[blk].to(dev) for st in streams],
+                  [st[p].valid[blk].to(dev) for st in streams])
+                 for p in range(n_pass)]
+                for dev, blk in zip(devices, blocks)]
+
+        ctu = [[None] * n_pass for _ in range(s)]
+        for p in range(n_pass):
+            with tracer.span("ctu", {"pass": p, "sharded": True,
+                                     "tile_shards": s}):
+                for k, (dev, sf) in enumerate(zip(devices, shards)):
+                    with dshard.on_device(dev):
+                        ctu[k][p] = self._ctu_tile_rows(sf, grid, *rows[k][p])
+                tracer.block(ctu)
+        note = _BlendNote(tracer)
+        states = [None] * s
+        alive = [[None] * n_pass for _ in range(s)]
+        kproc = [[None] * n_pass for _ in range(s)]
+        kb_total = 0
+        for p in range(n_pass):
+            with tracer.span("blend", {"pass": p, "sharded": True,
+                                       "tile_shards": s,
+                                       "backend": self._blend_backend()}
+                             ) as sp:
+                for k, (dev, sf) in enumerate(zip(devices, shards)):
+                    lists, valid = rows[k][p]
+                    with dshard.on_device(dev):
+                        states[k], alive[k][p], kproc[k][p], kb = \
+                            self._blend_step(sf, grid, sf.ids(lists),
+                                             sf.cat(valid), ctu[k][p][0],
+                                             states[k])
+                kb_total += kb
+                note(sp, states, [alive[k][p] for k in range(s)])
+
+        # The single gather: each shard's rows back to the frames' device,
+        # frame by frame in tile order.
+        def gather(parts):
+            return torch.cat([x.to(primary).view(batch, t, *x.shape[1:])
+                              for x in parts], dim=1).flatten(0, 1)
+
+        state = tuple(gather(f) for f in zip(*states))
+        if not self.raster.fused:
+            state = raster.BlendState(*state)
+        alive_parts = [gather([a[p] for a in alive]) for p in range(n_pass)]
+        kparts = ([gather([kp[p] for kp in kproc]) for p in range(n_pass)]
+                  if self.raster.fused else None)
+        sub_hits = [gather([c[p][1] for c in ctu]) for p in range(n_pass)]
+        mini_hits = [gather([c[p][2] for c in ctu]) for p in range(n_pass)]
+
+        counters = []
+        for b, (ps, st) in enumerate(zip(pss, streams)):
+            r = slice(b * grid.num_tiles, (b + 1) * grid.num_tiles)
+            pass_c = [H.stream_entry_counters(
+                ps.proj, grid, st[p].lists, st[p].valid, sub_hits[p][r],
+                mini_hits[p][r], self.test.mode, self.test.spiky_threshold)
+                for p in range(n_pass)]
+            c = dict(pass_c[0])
+            for pc in pass_c[1:]:
+                for key in H.ADDITIVE_COUNTER_KEYS:
+                    c[key] = c[key] + pc[key]
+            counters.append(c)
+        blended = self._finalize_blend_frames(
+            grid, batch, state, alive_parts, kparts, kb_total,
+            [st[0].overflow for st in streams], streams[0][0].lists.shape[1])
+
+        def effective(b, p, alive):
+            r = slice(b * grid.num_tiles, (b + 1) * grid.num_tiles)
+            return self._effective_counters_from_hits(
+                pss[b].proj, streams[b][p].lists, sub_hits[p][r],
+                mini_hits[p][r], alive)
+
+        def occupancy(b):
+            # How evenly the survivor entries split over the shards
+            # (contiguous tile blocks): max == min is a balanced frame.
+            valid = torch.stack([ts.valid for ts in streams[b]])
+            per_shard = valid.view(n_pass, s, t, -1).sum(dim=(0, 2, 3))
+            f32 = torch.float32
+            return dict(
+                tile_shards=torch.tensor(float(s), dtype=f32,
+                                         device=primary),
+                shard_entries_max=per_shard.max().to(f32),
+                shard_entries_min=per_shard.min().to(f32))
+
+        return self._finish_frames(pss, streams, counters, blended,
+                                   effective, tracer, root, extra=occupancy)
+
+    def render_tile_subset(self, scene: GaussianScene, camera, tile_ids):
+        """Single-device re-render of a subset of tiles (by row index).
+
+        The shard-recovery path: when a tile shard is lost mid-frame, the
+        survivors re-run exactly the lost rows. Preprocess and Stage 1 are
+        recomputed (they were never sharded), then the CTU and the blend
+        run on the selected rows only, with their tile origins. Tiles are
+        independent, so each returned row equals the same row of the full
+        render bit for bit, which is what lets
+        `distributed.fault.render_with_shard_recovery` splice them into the
+        healthy frame under a parity gate.
+
+        tile_ids: (B,) int tile indices. Returns a dict of per-tile rows:
+        image (B, P, 3), alpha (B, P), processed (B, P), blended (B, P)
+        (floats, after the background and the finalize), entry_alive
+        (B, n_passes·K).
+        """
+        if self.dataflow != "stream" or self.test.method != "cat":
+            raise ValueError(
+                "render_tile_subset requires the stream dataflow with the "
+                "'cat' method (the row-wise CTU has no dense/baseline form)")
+        ps = self.preprocess(scene, camera)
+        streams = self.stage1_compact(ps)
+        grid = ps.grid
+        device = ps.proj.depth.device
+        tile_ids = torch.as_tensor(tile_ids, device=device).long()
+        fold = H.fold_frames([ps.proj], grid).on(
+            device, grid.tile_origins(device)[tile_ids])
+        pass_rows = []
+        for ts in streams:
+            lists, valid = ts.lists[tile_ids], ts.valid[tile_ids]
+            mini, _, _ = self._ctu_tile_rows(fold, grid, [lists], [valid])
+            pass_rows.append((lists, valid, mini))
+        state, alive, _ = self._blend_tile_rows(fold, grid, pass_rows)
+        entry_alive = torch.cat(alive, dim=1)
+        bg = self.raster.background
+        if self.raster.fused:
+            trans, rgb, processed, blended = state
+            acc = 1.0 - trans
+            rgb = rgb + bg * trans[:, :, None]
+        else:
+            rgb = state.rgb + bg * (1.0 - state.acc)[..., None]
+            acc = state.acc
+            processed = state.processed.to(torch.float32)
+            blended = state.blended.to(torch.float32)
+        return dict(image=rgb, alpha=acc, processed=processed,
+                    blended=blended, entry_alive=entry_alive)
+
+    # -- introspection ------------------------------------------------------
+
+    def stages(self) -> tuple[StageSpec, ...]:
+        """The plan's stage sequence (name, backend, one-line description)."""
+        test_be = self.test.backend if self.test.method == "cat" else "torch"
+        ctu_desc = {
+            "cat": f"mini-tile CAT on {self.dataflow} entries",
+            "obb": "sub-tile OBB gathered at entries",
+            "aabb": "no fine test (whole tile list blends)",
+        }[self.test.method]
+        passes = (f" x {self.n_passes} spill passes"
+                  if self.n_passes > 1 else "")
+        return (
+            StageSpec("preprocess", "torch", "projection + 3σ footprints"),
+            StageSpec("stage1_compact", "torch",
+                      f"Stage-1 {self.test.method} + depth sort + "
+                      f"k_max={self.stream.k_max} compaction{passes} "
+                      f"({self.stream.overflow.value} on overflow)"),
+            StageSpec("ctu", test_be, ctu_desc),
+            StageSpec("blend", self._blend_backend(),
+                      "fused in-kernel early termination" if self.raster.fused
+                      else "pure-torch differentiable sweep"),
+        )
 
     # -- effective (termination-aware) counters -----------------------------
 
@@ -635,6 +991,23 @@ class RenderPlan:
             return torch.where(spiky, two, four)
         return torch.where(spiky, four, two)
 
+    def _effective_counters_from_hits(self, proj: Projected, lists,
+                                      sub_hits, mini_hits,
+                                      entry_alive) -> dict:
+        """Stream-dataflow effective counters from per-entry hit counts
+        ((T, K) ints). `_effective_counters` reduces the per-entry masks
+        to them and the tile-sharded path gathers them from the shards:
+        one expression set, so the two paths stay bit-identical."""
+        idx = lists.clamp_min(0).long()                          # (T, K)
+        prs = self._prs_per_subtile(proj).double()[idx]
+        f32 = torch.float32
+        return dict(
+            ctu_pairs_eff=(sub_hits * entry_alive).sum().to(f32),
+            ctu_prs_eff=H.exact_f32(sub_hits * prs * entry_alive),
+            vru_pairs_eff=(mini_hits * entry_alive).sum().to(f32),
+            ctu_stream_len=entry_alive.sum().to(f32),
+        )
+
     def _effective_counters(self, ps: ProjectedScene, ts: TileStream,
                             hout: H.StreamHierarchyOut, entry_alive) -> dict:
         """Termination-aware CTU/VRU workload: for each list entry processed
@@ -643,11 +1016,11 @@ class RenderPlan:
         the per-entry masks are those quantities; on the dense oracle the
         sub-tile and mini-tile bits are gathered at the entries from the
         full masks through the tile's image-global region ids."""
-        idx = hout.lists.clamp_min(0).long()                     # (T, K)
         if self.dataflow == "stream":
             sub = hout.entry_sub_mask                            # (T, K, Sp)
             mini = hout.entry_mini_mask                          # (T, K, Mt)
         else:
+            idx = hout.lists.clamp_min(0).long()                 # (T, K)
             device = idx.device
             sub = ts.dense.subtile_mask[
                 ps.grid.global_subtile_ids(device)[:, None, :],
@@ -655,16 +1028,32 @@ class RenderPlan:
             mini = ts.dense.minitile_mask[
                 ps.grid.global_minitile_ids(device)[:, None, :],
                 idx[:, :, None]]
-        sub_hits = sub.sum(dim=-1)                               # (T, K)
-        mini_hits = mini.sum(dim=-1)
-        prs = self._prs_per_subtile(ps.proj).double()[idx]
-        f32 = torch.float32
-        return dict(
-            ctu_pairs_eff=(sub_hits * entry_alive).sum().to(f32),
-            ctu_prs_eff=H.exact_f32(sub_hits * prs * entry_alive),
-            vru_pairs_eff=(mini_hits * entry_alive).sum().to(f32),
-            ctu_stream_len=entry_alive.sum().to(f32),
-        )
+        return self._effective_counters_from_hits(
+            ps.proj, hout.lists, sub.sum(dim=-1), mini.sum(dim=-1),
+            entry_alive)
+
+
+class _BlendNote:
+    """The `blend[pass=i]` span's processed/blended deltas and live
+    entries, from one pass's blend states and entry_alive (one of each per
+    shard). Sums are float64 over integer counts, so a sharded pass reports
+    what the single-device pass does."""
+
+    def __init__(self, tracer):
+        self.tracer = tracer
+        self.prev = [0.0, 0.0]
+
+    def __call__(self, sp, states, alives):
+        tracer = self.tracer
+        tracer.block((states, alives))
+        if not tracer.enabled:
+            return
+        proc = sum(float(st[-2].sum(dtype=torch.float64)) for st in states)
+        bl = sum(float(st[-1].sum(dtype=torch.float64)) for st in states)
+        sp.set(processed_delta=proc - self.prev[0],
+               blended_delta=bl - self.prev[1],
+               entries_alive=float(sum(float(a.sum()) for a in alives)))
+        self.prev = [proc, bl]
 
 
 class Renderer:
@@ -684,13 +1073,15 @@ class Renderer:
                  stream: Optional[StreamConfig] = None,
                  raster: Optional[RasterConfig] = None,
                  dataflow: str = "stream",
+                 shard: Optional[ShardConfig] = None,
                  lod: Optional["LODConfig"] = None):
         self.plan = RenderPlan(
             grid=grid if grid is not None else GridConfig(),
             test=test if test is not None else TestConfig(),
             stream=stream if stream is not None else StreamConfig(),
             raster=raster if raster is not None else RasterConfig(),
-            dataflow=dataflow, lod=lod)
+            dataflow=dataflow,
+            shard=shard if shard is not None else ShardConfig(), lod=lod)
 
     @classmethod
     def from_plan(cls, plan: RenderPlan) -> "Renderer":
@@ -700,7 +1091,7 @@ class Renderer:
 
     def replace(self, **kw) -> "Renderer":
         """New Renderer with plan fields replaced (grid/test/stream/raster/
-        dataflow/lod)."""
+        dataflow/shard/lod)."""
         return Renderer.from_plan(dataclasses.replace(self.plan, **kw))
 
     def render(self, scene: GaussianScene, camera) -> raster.RenderOut:
@@ -722,6 +1113,17 @@ class Renderer:
 
     def __repr__(self):
         return f"Renderer({self.plan!r})"
+
+
+def as_plan(obj) -> RenderPlan:
+    """Normalize Renderer | RenderPlan | legacy RenderConfig to a plan."""
+    if isinstance(obj, RenderPlan):
+        return obj
+    if isinstance(obj, Renderer):
+        return obj.plan
+    if hasattr(obj, "to_plan"):               # legacy pipeline.RenderConfig
+        return obj.to_plan()
+    raise TypeError(f"cannot build a RenderPlan from {type(obj).__name__}")
 
 
 def _frame_mean(frames, key: str) -> float:

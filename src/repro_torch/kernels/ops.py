@@ -16,11 +16,12 @@ the operands of pass i of every frame are gathered from the frames'
 concatenated `Projected` at offset list indices, each frame's tile
 origins and pixel centres repeated, so K1 and K2 run once per pass for
 the whole batch (`render_tiles_fused_frames`). Both kernels treat tiles
-independently, so each frame's rows equal its own launch's.
+independently, so each frame's rows equal its own launch's. A tile shard
+launches K2 on its block of rows (`blend_fused_rows`, tile origins that
+need not start at 0) and the gathered rows finalize as one frame's
+(`finalize_fused_frames`).
 """
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
@@ -165,8 +166,7 @@ def render_tiles_fused_passes(proj: Projected, grid: TileGrid, passes,
 
 
 def render_tiles_fused_frames(fold: H.FrameFold, grid: TileGrid, passes,
-                              background: float = 0.0, overflows=(False,),
-                              *, span_cb=None, pass_cb=None):
+                              background: float = 0.0, overflows=(False,)):
     """Fused-kernel blend of B frames, one K2 launch per spill pass.
 
     passes: per pass, one (lists (T, K), valid, entry_mask) per frame —
@@ -176,39 +176,51 @@ def render_tiles_fused_frames(fold: H.FrameFold, grid: TileGrid, passes,
     concatenation when K is a multiple of K_BLK. A pass whose tiles have
     all terminated runs no chunk.
 
-    span_cb(i) -> context manager bracketing pass i (the renderer's
-    `blend[pass=i]` span); pass_cb(span, fb) runs inside it after the
-    launch. Both optional, so this layer never imports obs.
-
     Returns one (RenderOut, counters) per frame: the kernel-measured
     processed/blended/entry_alive (entry_alive concatenated over passes
     along K) and the sweep counters only the fused kernel reports:
     kblocks_processed, kblocks_total, swept_per_pixel.
     """
-    state = None
-    alive_parts = []
-    device = fold.proj.depth.device
-    kproc = torch.zeros((fold.frames,), dtype=torch.float32, device=device)
-    kblocks_total = 0
-    for i, frames in enumerate(passes):
+    state, alive_parts, kparts, kblocks_total = None, [], [], 0
+    for frames in passes:
         lists, valid, masks = zip(*frames)
-        ops = gather_tile_features(fold.proj, grid, fold.ids(lists),
-                                   fold.cat(valid), fold.cat(masks),
-                                   tile_origins=fold.tile_origins)
-        with (span_cb(i) if span_cb is not None
-              else contextlib.nullcontext()) as sp:
-            fb = krender.blend_tiles_fused(*ops, init=state)
-            state = (fb.trans, fb.rgb, fb.processed, fb.blended)
-            if pass_cb is not None:
-                pass_cb(sp, fb)
+        fb = blend_fused_rows(fold, grid, fold.ids(lists), fold.cat(valid),
+                              fold.cat(masks), state)
+        state = (fb.trans, fb.rgb, fb.processed, fb.blended)
         alive_parts.append(fb.entry_alive)
-        kproc = kproc + fb.kblocks_processed.view(
-            fold.frames, grid.num_tiles).sum(dim=1).to(torch.float32)
+        kparts.append(fb.kblocks_processed)
         kblocks_total += fb.kblocks_total
+    return finalize_fused_frames(grid, fold.frames, state, background,
+                                 overflows, alive_parts, kparts,
+                                 kblocks_total)
+
+
+def blend_fused_rows(fold: H.FrameFold, grid: TileGrid, ids, valid, masks,
+                     state=None) -> krender.FusedBlendOut:
+    """One K2 launch over the fold's rows: ids, valid, masks are the
+    folded (B·t, K[, Mt]) operands of one pass, state the carried
+    (trans, rgb, processed, blended) of the previous pass (None on the
+    first)."""
+    ops = gather_tile_features(fold.proj, grid, ids, valid, masks,
+                               tile_origins=fold.tile_origins)
+    return krender.blend_tiles_fused(*ops, init=state)
+
+
+def finalize_fused_frames(grid: TileGrid, frames: int, state, background,
+                          overflows, alive_parts, kparts, kblocks_total):
+    """One (RenderOut, counters) per frame from the carried state of B
+    frames' full rows (frame b's tiles at rows b·T..(b+1)·T-1), the
+    per-pass entry_alive and the per-pass (B·T,) kblocks_processed."""
+    device = state[0].device
+    kproc = torch.zeros((frames,), dtype=torch.float32, device=device)
+    for kp in kparts:
+        kproc = kproc + kp.view(frames, grid.num_tiles).sum(dim=1).to(
+            torch.float32)
     entry_alive = torch.cat(alive_parts, dim=1)
     outs = []
-    for b in range(fold.frames):
-        rows = fold.rows(b, grid.num_tiles)
+    t = grid.num_tiles
+    for b in range(frames):
+        rows = slice(b * t, (b + 1) * t)
         outs.append(finalize_fused_passes(
             grid, tuple(x[rows] for x in state), background, overflows[b],
             entry_alive[rows], kproc[b], kblocks_total))

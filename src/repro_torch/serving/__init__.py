@@ -1,4 +1,5 @@
-"""Request-level serving on one device, above the staged render API.
+"""Request-level serving on one device or a mesh, above the staged render
+API.
 
     engine     — RenderEngine: scene registry (probe-driven k_max) +
                  RenderPlan-keyed plan cache + batched rendering (one K1
@@ -12,6 +13,9 @@
     telemetry  — rolling latency percentiles, throughput, overflow/spill
                  accounting, per-tier SLO counters, and the modeled
                  FLICKER ASIC FPS from the frames' counters
+    sharding   — frame-axis and tile-axis device sharding over a
+                 `distributed.sharding.Mesh` of torch devices (tile_mesh,
+                 shard_frames, replicate)
     workloads  — demo scenes, the Full-HD (1920×1088 / 512k) SPILL
                  workload and its frame-size-aware batching policy, and
                  the replayable open-loop traffic generator

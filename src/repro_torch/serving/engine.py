@@ -1,4 +1,5 @@
-"""RenderEngine: multi-scene, bucketed, batched rendering on one device.
+"""RenderEngine: multi-scene, bucketed, batched rendering on one device or
+a mesh of devices.
 
 The engine is the request-level layer above the staged render API
 (`core.renderer`): it holds a registry of named `GaussianScene`s on its
@@ -61,9 +62,21 @@ pow2-bucketed compact sub-scene and renders that; the selection bucket is
 pinned into the plan's `LODConfig`, so it keys the plan cache like the
 spill pass bucket.
 
+Meshes: `mesh=` (a `distributed.sharding.Mesh` of torch devices) splits
+each batch's frame axis over the mesh's data rows
+(`serving.sharding.shard_frames`, padding an odd bucket by repeating its
+last frame) and replicates scenes on every mesh device; each row's group
+renders through `render_batch_with_stats` on that row's devices, and the
+frames are gathered on the engine's device. `shard_tiles=S` gives the plan
+a `ShardConfig(tile_shards=S)`, so every frame's tiles split over the
+row's S `model` devices (one K1 and one K2 launch a pass per shard),
+bit-identical to the single-device frame. Without a mesh it builds a
+`serving.sharding.tile_mesh(S)` over the visible CUDA devices. Devices
+may repeat: `tile_mesh(4, devices=[torch.device("cuda:0")] * 4)` runs four
+virtual shards on one card.
+
 The engine runs on `torch.device("cuda")` unless it is given another
-device, and raises if CUDA is asked for and absent. Multi-device meshes
-are not ported yet.
+device, and raises if CUDA is asked for and absent.
 """
 from __future__ import annotations
 
@@ -78,11 +91,15 @@ import torch
 from repro_torch.core.camera import Camera, stack_cameras
 from repro_torch.core.gaussians import GaussianScene, pad_scene
 from repro_torch.core.pipeline import RenderConfig
+from repro_torch.core import raster
 from repro_torch.core.renderer import (OverflowPolicy, RenderPlan, Renderer,
+                                       ShardConfig, as_plan,
                                        enforce_overflow_policy,
                                        frame_counters, measure_k_max,
                                        next_pow2)
+from repro_torch.distributed import sharding as dshard
 from repro_torch.obs import trace as obs_trace
+from repro_torch.serving import sharding as shd
 from repro_torch.serving.telemetry import Telemetry
 
 
@@ -140,6 +157,8 @@ class _SceneEntry:
     # padded count.
     lod: Optional[object] = None          # repro_torch.lod.LODScene
     lod_cfg: Optional[object] = None      # repro_torch.lod.LODConfig
+    # With a mesh: `scene` on every mesh device (`shd.replicate`).
+    replicas: Optional[dict] = None
 
 
 def _resolve_device(device) -> torch.device:
@@ -152,26 +171,17 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def _as_plan(base) -> RenderPlan:
-    """Renderer | RenderPlan | legacy RenderConfig | None -> a plan."""
-    if base is None:
-        return RenderPlan()
-    if isinstance(base, RenderPlan):
-        return base
-    if isinstance(base, Renderer):
-        return base.plan
-    if hasattr(base, "to_plan"):
-        return base.to_plan()
-    raise TypeError(f"cannot build a RenderPlan from {type(base).__name__}")
-
-
 class RenderEngine:
     """Registry of scenes + bucketed plan cache + batch renderer.
 
     base: the render configuration to serve with — a `Renderer`, a
         `RenderPlan`, or a legacy flat `RenderConfig`. Its grid resolution
         and k_max are overridden per (request resolution, scene).
-    device: where scenes live and frames render (default "cuda").
+    device: where scenes live and frames render (default "cuda"); with a
+        mesh, where each batch's frames are gathered.
+    mesh: optional `distributed.sharding.Mesh`: batches split their frame
+        axis over its data rows and scenes are replicated on its devices
+        (`serving.sharding`).
     max_batch: upper bound on the padded batch bucket; a larger batch
         raises.
     pad_scenes: bucket scene sizes (power-of-two padding with inert
@@ -205,11 +215,19 @@ class RenderEngine:
         pays one full recompaction, like a cold cache);
         `engine_session_evictions_total` counts these evictions and those
         of sessions whose scene left the registry.
+    shard_tiles: shard the tile axis of every frame over this many devices
+        (`core.renderer.ShardConfig`), the single-frame latency lever,
+        orthogonal to the mesh's frame sharding (frame x tile composes on
+        one mesh). When > 1 and no mesh is given, a
+        `serving.sharding.tile_mesh` over the visible CUDA devices is
+        built; a given mesh must carry a model axis of exactly this size.
+        Output stays bit-identical to the single-device path.
     """
 
     def __init__(self,
                  base: Union[Renderer, RenderPlan, RenderConfig, None] = None,
                  *, device: Union[str, torch.device] = "cuda",
+                 mesh: Optional[dshard.Mesh] = None,
                  max_batch: int = 64, pad_scenes: bool = True,
                  telemetry: Optional[Telemetry] = None,
                  overflow: Union[OverflowPolicy, str, None] = None,
@@ -217,10 +235,11 @@ class RenderEngine:
                  dataflow: Optional[str] = None,
                  incremental: bool = False,
                  coherence=None,
+                 shard_tiles: int = 1,
                  jit_cache_size: int = 64,
                  max_scenes: Optional[int] = None,
                  max_sessions: int = 64):
-        plan = _as_plan(base)
+        plan = RenderPlan() if base is None else as_plan(base)
         if fused is not None:
             plan = dataclasses.replace(
                 plan, raster=dataclasses.replace(plan.raster, fused=fused))
@@ -232,6 +251,15 @@ class RenderEngine:
             plan = dataclasses.replace(
                 plan, stream=dataclasses.replace(
                     plan.stream, overflow=OverflowPolicy(overflow)))
+        if shard_tiles > 1:
+            plan = dataclasses.replace(
+                plan, shard=ShardConfig(tile_shards=shard_tiles))
+            if mesh is None:
+                mesh = shd.tile_mesh(shard_tiles)
+            elif mesh.shape.get("model", 1) != shard_tiles:
+                raise ValueError(
+                    f"shard_tiles={shard_tiles} needs a mesh whose 'model' "
+                    f"axis has that size; got {dict(mesh.shape)}")
         if jit_cache_size < 1:
             raise ValueError(f"jit_cache_size must be >= 1, "
                              f"got {jit_cache_size}")
@@ -241,6 +269,7 @@ class RenderEngine:
             raise ValueError(f"max_sessions must be >= 1, "
                              f"got {max_sessions}")
         self.plan = plan
+        self.mesh = mesh
         self.device = _resolve_device(device)
         self.max_batch = max_batch
         self.pad_scenes = pad_scenes
@@ -323,7 +352,9 @@ class RenderEngine:
                                       cap=n_bucket)
             entry = _SceneEntry(
                 scene=padded, n_real=n_real, n_bucket=n_bucket,
-                k_max=k_max if k_max is not None else n_bucket)
+                k_max=k_max if k_max is not None else n_bucket,
+                replicas=(None if self.mesh is None else
+                          shd.replicate(padded, self.mesh)))
         self._scenes[name] = entry
         self._scenes.move_to_end(name)   # re-register refreshes LRU position
         reg = self.telemetry.registry
@@ -501,6 +532,7 @@ class RenderEngine:
         tracer = obs_trace.current()
         retries = passes_run = 0
         scene_in, n_bucket = entry.scene, entry.n_bucket
+        replicas = entry.replicas
         lod_bucket = lod_sel = None
         t0 = time.perf_counter()   # spans retries: render_s is the wall the
         with tracer.span("engine.render_batch",   # batch cost, retries incl.
@@ -515,6 +547,8 @@ class RenderEngine:
                     scene_in, lod_bucket, lod_sel = self._lod_gather(
                         entry, cameras[:n])
                     n_bucket = lod_bucket
+                    if self.mesh is not None:
+                        replicas = shd.replicate(scene_in, self.mesh)
                     if tracer.enabled:
                         sp.set(clusters_total=entry.lod.n_clusters,
                                bucket=lod_bucket,
@@ -527,7 +561,8 @@ class RenderEngine:
                                  {"compile": miss,
                                   "n_passes": plan.stream.max_spill_passes,
                                   "k_max": plan.stream.k_max}):
-                    out, counters = fn(scene_in, cams)
+                    out, counters = self._dispatch(fn, scene_in, replicas,
+                                                   cams)
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
                 passes_run += plan.n_passes
@@ -577,6 +612,29 @@ class RenderEngine:
                         overflow=bool(frame_overflow[i]))
             for i, r in enumerate(requests)
         ]
+
+    def _dispatch(self, fn, scene: GaussianScene, replicas, cams):
+        """One batch render. Without a mesh, `fn(scene, cams)` under no
+        mesh. With one, the frame axis splits over its data rows
+        (`shard_frames`); each row's group renders on the row's first
+        device, with that row's sub-mesh active for the tile shards, and
+        the results are gathered on the engine's device and sliced back to
+        the batch's frame count."""
+        if self.mesh is None:
+            return fn(scene, cams)
+        parts = []
+        for d, group in enumerate(shd.shard_frames(cams, self.mesh)):
+            sub = self.mesh.row(d)
+            with dshard.use_mesh(sub), dshard.on_device(sub.primary):
+                parts.append(fn(replicas[sub.primary], group))
+        n = cams.frames
+        out = raster.RenderOut(*(
+            torch.cat([getattr(o, f).to(self.device) for o, _ in parts])[:n]
+            for f in raster.RenderOut._fields))
+        counters = {k: torch.cat([c[k].to(self.device)
+                                  for _, c in parts])[:n]
+                    for k in parts[0][1]}
+        return out, counters
 
     def _lod_gather(self, entry: _SceneEntry, cameras):
         """Select per camera and gather the union sub-scene for one batch.
@@ -658,9 +716,10 @@ class RenderEngine:
             while True:
                 plan = self.plan_for(name, height, width)
                 cache = self._frame_caches.get(request.session)
-                out, counters, cache = coh.render_incremental(
-                    plan, entry.scene, camera, cache, self.coherence,
-                    enforce=False)
+                with dshard.use_mesh(self.mesh):
+                    out, counters, cache = coh.render_incremental(
+                        plan, entry.scene, camera, cache, self.coherence,
+                        enforce=False)
                 self._frame_caches[request.session] = cache
                 self._frame_caches.move_to_end(request.session)
                 self._session_scene[request.session] = name

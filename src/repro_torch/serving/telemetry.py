@@ -231,6 +231,18 @@ class Telemetry:
                       "Gaussians the most recent LOD batch selected "
                       "(per-frame mean)"
                       ).set(rec.counters.get("lod_gaussians_selected", 0.0))
+        if "tile_shards" in rec.counters:
+            reg.gauge("render_tile_shards",
+                      "Tile shards the most recent batch rendered across"
+                      ).set(rec.counters["tile_shards"])
+            reg.gauge("render_shard_entries_max",
+                      "Survivor entries on the fullest tile shard (the "
+                      "critical-path shard) for the most recent batch"
+                      ).set(rec.counters.get("shard_entries_max", 0.0))
+            reg.gauge("render_shard_entries_min",
+                      "Survivor entries on the emptiest tile shard (load "
+                      "balance floor) for the most recent batch"
+                      ).set(rec.counters.get("shard_entries_min", 0.0))
         for key, mname, help_ in (
                 ("tiles_reused", "render_tiles_reused_total",
                  "Stage-1 tile compactions skipped by the frame-coherent "

@@ -13,7 +13,9 @@ sides of 464); K2 (fused blend) rgb/trans atol 2e-4, counters exact (also
 with sparse masks, ragged K and carried state; a batch of two frames
 folded into the tile axis equal to per-frame launches bit for bit, K1 and
 K2 both; an LOD build bit-equal across two runs from one seed, and an LOD
-frame through K1 and K2 within 2e-4 of its plain versions); K4 (dense CAT)
+frame through K1 and K2 within 2e-4 of its plain versions; a frame
+tile-sharded over four virtual shards of the card equal to the
+single-device frame bit for bit); K4 (dense CAT)
 exact
 under FULL_FP32 and MIXED; K3 (full-sweep blend) rgb/trans atol 1e-6;
 the kernels' fp16/fp8 rounding (`prtu.alg1_quant`) bit-equal to the plain
@@ -512,14 +514,51 @@ def check_lod_build_and_render(cuda):
         assert torch.equal(c[key], wc[key]), key
 
 
+def check_sharded_equals_single(cuda):
+    """A 64² SPILL frame tile-sharded over four virtual shards of the card
+    (`[cuda] * 4`): K1 and K2 launched 4 times a pass on row blocks whose
+    origins do not start at 0, and the frame equal to the single-device
+    frame bit for bit (every RenderOut field, every counter of the single
+    frame)."""
+    import dataclasses
+    from repro_torch.core import (GridConfig, RasterConfig, RenderPlan,
+                                  ShardConfig, StreamConfig, TestConfig,
+                                  orbit_camera, random_scene)
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.serving.sharding import tile_mesh
+    scene = random_scene(torch.Generator().manual_seed(15), 3000,
+                         scale_range=(-2.5, -2.0), device=cuda)
+    plan = RenderPlan(grid=GridConfig(64, 64),
+                      test=TestConfig(backend="cuda"),
+                      stream=StreamConfig(k_max=128, overflow="spill",
+                                          max_spill_passes=2),
+                      raster=RasterConfig(fused=True))
+    cam = orbit_camera(0.2, 64, 64, device=cuda)
+    want, wc = plan.render_with_stats(scene, cam)
+    before = (prtu.launches, render.launches)
+    with use_mesh(tile_mesh(4, devices=[cuda] * 4)):
+        got, gc = dataclasses.replace(
+            plan, shard=ShardConfig(tile_shards=4)).render_with_stats(
+                scene, cam)
+    assert (prtu.launches - before[0], render.launches - before[1]) == \
+        (4 * plan.n_passes, 4 * plan.n_passes)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    for k in wc:
+        assert torch.equal(gc[k], wc[k]), k
+    assert float(gc["tile_shards"]) == 4.0
+
+
 @pytest.mark.cuda
 def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     """K2 with ~30% of the mini-tile bits set, wide opaque entries (pixels
     and whole tiles die mid-chunk), a ragged K = 300 and state carried from
     a first pass: rgb/trans within 2e-4 of the plain version, counters
     equal. Then a folded two-frame batch through K1 and K2 against the
-    per-frame launches (`check_folded_batch_equals_per_frame`), and an LOD
-    build and frame on the card (`check_lod_build_and_render`)."""
+    per-frame launches (`check_folded_batch_equals_per_frame`), an LOD
+    build and frame on the card (`check_lod_build_and_render`), and a
+    frame tile-sharded over four virtual shards of the card against the
+    single-device frame (`check_sharded_equals_single`)."""
     t = 24
     rng = np.random.default_rng(11)
     first = [torch.from_numpy(x) for x in blend_operands(12, t=t, k=128)]
@@ -540,6 +579,7 @@ def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     assert_fused_equal(got, want)
     check_folded_batch_equals_per_frame(cuda)
     check_lod_build_and_render(cuda)
+    check_sharded_equals_single(cuda)
 
 
 @pytest.mark.cuda
