@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--json PATH] [--passes-only | --offpath-only |
-                          --sessions-only | --lod-only | --shards-only]
+                          --sessions-only | --lod-only | --shards-only |
+                          --train-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -142,16 +143,39 @@ Phases, in order:
         (bucket 4, split 2 + 2): each frame bit-equal to the unsharded
         engine's and within 2e-4 of the all-"torch" plan's render,
         tile_shards 2, K1 and K2 launched 2 x 2 times a pass
+  9. runs after 8: scene training on the card, autograd through the
+     all-"torch" plan (the kernels have no backward: train unfused, serve
+     fused); 9a-9c launch no kernel.
+     a. benchmarks/train_dataflow.py's 64² / 500-Gaussian scene:
+        grad(stream) against grad(dense) under FULL_FP32, max relative
+        error < 1e-3; a SPILL plan of 32 passes of 8 (MIXED) against its
+        one pass of 256 within rtol 1e-5, atol 1e-7; forward and backward
+        device ms of each plan under torch.profiler
+     b. table1_quality.py's fit shape (64², 700 Gaussians, aabb,
+        FULL_FP32, 150 steps) against the sinusoid: the loss falls; PSNR
+        before and after, ms a warm step, one step's device-busy share
+     c. test_stream.py's 512² / 65,536-Gaussian scene (MIXED CAT, k_max
+        1536; SPILL if a tile list overflows, and the count) fitted 5
+        steps to the render of a second seeded scene: per step wall, loss
+        and finite gradient share; the loss falls; peak memory against the
+        tape's reckoning; one forward and backward under torch.profiler
+        (device-busy ms, top 5 kernels)
+     d. 9c's trained scene through K1 ("cuda" CTU) and K2 (fused): within
+        2e-4 of the all-"torch" frame, K1 and K2 once a pass
+     e. `fit` under a FaultManager (save_every 3, build/train_ckpt) for 6
+        steps of 9a's fit, and a run resumed from the step-3 checkpoint,
+        under deterministic algorithms: bit-equal; the checkpoints removed
   5. one {"kernels": [...]} line (K1's and K2's rows also carry phase 8's
-     shard_launches, shard_ms and shard_bound_ms), the card line, and as
-     the last line {"ok": true, "device": {...}}
+     shard_launches, shard_ms and shard_bound_ms, and phase 9d's
+     train_launches), the card line, and as the last line
+     {"ok": true, "device": {...}}
 
 Exits non-zero without printing a result when CUDA is unavailable or any
 phase fails. `--json PATH` also writes every measurement to PATH.
 `--passes-only` runs phases 1 and 4c alone and prints their sums as its
 last line; `--sessions-only` runs phases 1 and 4g; `--lod-only` runs
 phases 1 and 7; `--shards-only` runs phases 1 and 8 (rendering 8d's
-plain frames itself); `--offpath-only` runs phase 1, the 1024² setup,
+plain frames itself); `--train-only` runs phases 1 and 9; `--offpath-only` runs phase 1, the 1024² setup,
 phase 6a and K3 on the 1024² frame's lists, and prints their times on
 the line before the card line and the contract's last line. A copy of this script placed
 at the root of another commit's tree (`git archive`) times that commit's
@@ -178,12 +202,17 @@ import inspect
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# Phase 9e runs under deterministic algorithms, which refuse cuBLAS
+# matmuls unless this is set before the first one.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
@@ -195,7 +224,9 @@ from repro_torch.core import (FULL_FP32, MIXED, GridConfig,  # noqa: E402
                               load_ply, measure_k_max, orbit_camera,
                               project, psnr, random_scene, save_ply, ssim,
                               tile_fingerprints)
+from repro_torch.core import GaussianScene, RenderConfig, training  # noqa: E402
 from repro_torch.core.clustering import kmeans_clusters  # noqa: E402
+from repro_torch.core.culling import aabb_mask, tile_chunk  # noqa: E402
 from repro_torch.core.pruning import contribution_scores  # noqa: E402
 from repro_torch.core.renderer import next_pow2  # noqa: E402
 from repro_torch.lod import (LODConfig, build_lod,  # noqa: E402
@@ -206,13 +237,17 @@ from repro_torch.core.cat import leader_corners  # noqa: E402
 from repro_torch.core.hierarchy import count_true  # noqa: E402
 from repro_torch.core.raster import entry_mask_from_dense, untile  # noqa: E402
 from repro_torch.core.precision import PrecisionScheme, _quant  # noqa: E402
-from repro_torch.core.raster import T_EPS, entry_alpha  # noqa: E402
+from repro_torch.core.raster import (COMPACT_CHUNK_ELEMS, T_EPS,  # noqa: E402
+                                    entry_alpha)
+from repro_torch.core.renderer import StreamOverflowWarning  # noqa: E402
+from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.core.camera import resize_camera  # noqa: E402
 from repro_torch.core.hierarchy import fold_frames  # noqa: E402
 from repro_torch.kernels import build, ops, prtu, render  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.core.coherence import camera_delta  # noqa: E402
-from repro_torch.distributed import (ShardDropInjector,  # noqa: E402
+from repro_torch.distributed import (FaultConfig, FaultManager,  # noqa: E402
+                                     ShardDropInjector,
                                      render_with_shard_recovery)
 from repro_torch.serving import (HD_SCENE_KW, AdmissionRejected,  # noqa: E402
                                  RenderEngine, RenderRequest, Scheduler,
@@ -893,15 +928,18 @@ def same_frame(a, b) -> bool:
 
 def device_profile(fn) -> tuple[float, list]:
     """(device-busy ms, [(kernel, ms), ...] by descending device time) of
-    `fn` under torch.profiler (device-side events)."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    `fn` under torch.profiler, recording device activity only: a training
+    step issues ~10^5 small ops, whose host-side events would cost the
+    profiler minutes to collect and sum. Fails if no device time shows."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.self_device_time_total / 1e3)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
-    return sum(ms for _, ms in rows), rows
+    busy = sum(ms for _, ms in rows)
+    check(busy > 0, "torch.profiler recorded no device time")
+    return busy, rows
 
 
 def device_busy_ms(fn) -> float:
@@ -2203,6 +2241,389 @@ def phase_frame_by_tile(base, name, reqs, base_frames, plain_images, dev,
                 wall_s=got[0].render_s)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: scene training on the card, the trained scene served fused
+# ---------------------------------------------------------------------------
+
+# benchmarks/train_dataflow.py's gradient-parity fit: 64², 500 Gaussians.
+TRAIN_GRADS = dict(res=64, n=500, seed=0, k_max=500,
+                   scene_kw=dict(scale_range=(-2.8, -2.0), stretch=3.5,
+                                 opacity_range=(-1.0, 1.0), spiky_frac=0.4))
+# benchmarks/table1_quality.py's fit: 64², 700 Gaussians, aabb, 150 steps.
+TRAIN_FIT = dict(res=64, n=700, seed=7, steps=150,
+                 scene_kw=TRAIN_GRADS["scene_kw"])
+# tests/test_stream.py's 512² / 65,536-Gaussian stream frame, the largest
+# stream configuration of the repo whose autograd tape fits one card; the
+# target is the render of a second scene of the same kind.
+TRAIN_512 = dict(res=512, n=1 << 16, seed=11, target_seed=12, k_max=1536,
+                 steps=5, scene_kw=dict(scale_range=(-3.3, -2.7),
+                                        stretch=3.0,
+                                        opacity_range=(-1.0, 3.0)))
+# Autograd tape of `raster.blend_pass` per (tile pixel, list entry): eleven
+# float32 (T, P) tensors (d0, d0², d1, d1², c·d0, exp(-E), o·exp(-E), the
+# gated alpha, T, T·alpha, 1 - alpha) and one bool lane mask.
+TAPE_BYTES_PER_PIXEL_ENTRY = 45
+RESUME_STEPS, RESUME_EVERY = 6, 3
+
+
+def seeded_scene(cfg: dict, dev, seed=None):
+    gen = torch.Generator(device=dev).manual_seed(
+        cfg["seed"] if seed is None else seed)
+    return random_scene(gen, cfg["n"], **cfg["scene_kw"])
+
+
+def sinusoid_target(res: int, dev) -> torch.Tensor:
+    """benchmarks/train_dataflow.py's target image."""
+    r = torch.arange(res, dtype=torch.float32, device=dev) / res
+    y, x = torch.meshgrid(r, r, indexing="ij")
+    return torch.stack([0.5 + 0.4 * torch.sin(3 * x + 2 * y),
+                        0.5 + 0.4 * torch.cos(2 * y),
+                        0.5 + 0.4 * torch.sin(4 * x * y)], -1)
+
+
+def survivor_counts(scene, cam, grid: GridConfig) -> torch.Tensor:
+    """(T,) Stage-1 survivor count of every tile, counted one tile chunk at
+    a time as `measure_k_max` counts it."""
+    g = grid.with_resolution(cam.height, cam.width).make()
+    proj = project(scene, cam)
+    origins = g.tile_origins(proj.depth.device)
+    chunk = tile_chunk(g.num_tiles, scene.n, COMPACT_CHUNK_ELEMS)
+    return torch.cat([aabb_mask(proj, origins[s:s + chunk], g.tile).sum(1)
+                      for s in range(0, g.num_tiles, chunk)])
+
+
+def grad_leaves(grads) -> list:
+    return [getattr(grads, f) for f in training.SCENE_FIELDS]
+
+
+def grad_max_rel(got, want) -> float:
+    """benchmarks/train_dataflow.py's stream/dense metric: the largest
+    |a - b| / (|b| + 1e-8) over every element of every leaf."""
+    return max(float(((a - b).abs() / (b.abs() + 1e-8)).max())
+               for a, b in zip(grad_leaves(got), grad_leaves(want)))
+
+
+def grad_excess(got, want, rtol: float, atol: float) -> float:
+    """The largest |a - b| / (atol + rtol·|b|): at most 1 where every
+    element of every leaf is within the tolerance."""
+    return max(float(((a - b).abs() / (atol + rtol * b.abs())).max())
+               for a, b in zip(grad_leaves(got), grad_leaves(want)))
+
+
+def all_finite(grads) -> bool:
+    return all(bool(torch.isfinite(g).all()) for g in grad_leaves(grads))
+
+
+def profiled_grad(plan, scene, cam, target) -> dict:
+    """`loss_fn` and its gradient at `scene` once, the forward and the
+    backward each under torch.profiler: loss, grads, device-busy ms and
+    the top device kernels of each."""
+    params = [getattr(scene, f).detach().requires_grad_(True)
+              for f in training.SCENE_FIELDS]
+    box = {}
+
+    def forward():
+        box["loss"] = training.loss_fn(GaussianScene(*params), cam, target,
+                                       plan, 0.2)
+
+    def backward():
+        box["grads"] = torch.autograd.grad(box["loss"], params)
+
+    fwd_ms, fwd_rows = device_profile(forward)
+    bwd_ms, bwd_rows = device_profile(backward)
+    return dict(loss=float(box["loss"]), grads=GaussianScene(*box["grads"]),
+                fwd_device_ms=fwd_ms, bwd_device_ms=bwd_ms,
+                fwd_top=fwd_rows[:5], bwd_top=bwd_rows[:5])
+
+
+def check_no_launches(label: str) -> None:
+    launches = launches_now()
+    check(not any(launches.values()),
+          f"{label}: training launched kernels {launches}")
+
+
+def phase_train_grads(cfg: dict, dev) -> dict:
+    """9a: the gradient on the card under the stream and the dense
+    dataflow (FULL_FP32) and under a SPILL plan of 32 passes of 8 entries
+    against its one pass of 256 (MIXED, test_spill.py's pair)."""
+    res, n = cfg["res"], cfg["n"]
+    scene = seeded_scene(cfg, dev)
+    cam = default_camera(res, res, device=dev)
+    target = sinusoid_target(res, dev)
+    grid = GridConfig(res, res)
+    fp32 = RenderPlan(grid=grid, test=TestConfig(precision=FULL_FP32),
+                      stream=StreamConfig(k_max=cfg["k_max"]))
+    plans = dict(
+        stream=fp32, dense=dataclasses.replace(fp32, dataflow="dense"),
+        spill=RenderPlan(grid=grid, test=TestConfig(precision=MIXED),
+                         stream=StreamConfig(k_max=8, overflow="spill",
+                                             max_spill_passes=32)),
+        one_pass=RenderPlan(grid=grid, test=TestConfig(precision=MIXED),
+                            stream=StreamConfig(k_max=256)))
+    longest = int(survivor_counts(scene, cam, grid).max())
+    rows = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for name, plan in plans.items():
+            rows[name] = profiled_grad(plan, scene, cam, target)
+    spill_warned = sum(issubclass(w.category, StreamOverflowWarning)
+                       for w in caught)
+    check(all(all_finite(r["grads"]) for r in rows.values()),
+          "train 9a: a gradient is not finite")
+    rel = grad_max_rel(rows["stream"]["grads"], rows["dense"]["grads"])
+    check(rel < 1e-3, f"train 9a: grad(stream) vs grad(dense) max "
+          f"relative error {rel} (>= 1e-3)")
+    excess = grad_excess(rows["spill"]["grads"], rows["one_pass"]["grads"],
+                         1e-5, 1e-7)
+    check(excess <= 1.0, f"train 9a: SPILL gradient off its one pass by "
+          f"{excess} x (rtol 1e-5, atol 1e-7)")
+    check(float(rows["stream"]["grads"].colors.abs().max()) > 0,
+          "train 9a: zero colour gradient")
+    check_no_launches("train 9a")
+    log(f"[train 9a] {res}x{res}, {n} Gaussians, longest survivor list "
+        f"{longest} (SPILL capacity 256, overflow warnings {spill_warned}): "
+        f"grad(stream) vs grad(dense) max relative error {rel:.2e} "
+        f"(bound 1e-3); SPILL 8 x 32 vs one pass of 256, largest "
+        f"|Δ| / (1e-7 + 1e-5·|g|) {excess:.3f} (bound 1); device ms "
+        "forward/backward " + ", ".join(
+            f"{k} {r['fwd_device_ms']:.2f}/{r['bwd_device_ms']:.2f}"
+            for k, r in rows.items()))
+    for r in rows.values():
+        r.pop("grads")
+    return dict(longest=longest, grad_max_rel=rel, spill_excess=excess,
+                spill_overflow_warnings=spill_warned, plans=rows)
+
+
+def phase_train_fit(cfg: dict, dev) -> dict:
+    """9b: table1_quality.py's fit shape (aabb, FULL_FP32, k_max = n)
+    against the sinusoid: `fit` for its steps (phase 9a warmed the same
+    kernels), ms a step, PSNR before and after, the device-busy share of
+    one step."""
+    res, steps = cfg["res"], cfg["steps"]
+    scene0 = seeded_scene(cfg, dev)
+    cam = default_camera(res, res, device=dev)
+    target = sinusoid_target(res, dev)
+    plan = RenderConfig(height=res, width=res, method="aabb",
+                        precision=FULL_FP32, k_max=cfg["n"]).to_plan()
+    tc = training.TrainConfig()
+    (scene, losses), wall = sync_wall_ms(
+        lambda: training.fit(scene0, cam, target, plan, tc, steps=steps))
+    step_ms = wall / steps
+    check(losses.shape == (steps,) and bool(torch.isfinite(losses).all()),
+          f"train 9b: losses {losses.shape}, finite "
+          f"{bool(torch.isfinite(losses).all())}")
+    check(float(losses[-1]) < float(losses[0]),
+          f"train 9b: loss {float(losses[0])} -> {float(losses[-1])} did "
+          "not fall")
+    busy, top = device_profile(lambda: training.train_step(
+        training.init_state(scene), cam, target, plan, tc))
+    with torch.no_grad():
+        before = float(psnr(plan.render(scene0, cam).image, target))
+        after = float(psnr(plan.render(scene, cam).image, target))
+    check_no_launches("train 9b")
+    log(f"[train 9b] fit {res}x{res}, {cfg['n']} Gaussians, aabb, "
+        f"{steps} steps: loss {float(losses[0]):.4f} -> "
+        f"{float(losses[-1]):.4f}, PSNR {before:.2f} -> {after:.2f} dB; "
+        f"{step_ms:.1f} ms a step (synchronized, {wall / 1e3:.1f} s in "
+        f"all); one step's device busy {busy:.1f} ms "
+        f"({100 * busy / step_ms:.1f}% of a step); top device time: "
+        + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top[:3]))
+    return dict(loss_first=float(losses[0]), loss_last=float(losses[-1]),
+                psnr_before=before, psnr_after=after, step_ms=step_ms,
+                wall_s=wall / 1e3, step_device_busy_ms=busy,
+                busy_share=busy / step_ms, top_device_ms=top[:5])
+
+
+def phase_train_512(cfg: dict, dev) -> dict:
+    """9c: 5 Adam steps at the card's size (MIXED, SMOOTH_FOCUSED CAT),
+    fitting the render of a second seeded scene: per step wall, loss and
+    finite share of the gradient; the peak memory against the tape's
+    reckoning; one forward and backward under torch.profiler."""
+    res, k_max = cfg["res"], cfg["k_max"]
+    scene0 = seeded_scene(cfg, dev)
+    hidden = seeded_scene(cfg, dev, seed=cfg["target_seed"])
+    cam = default_camera(res, res, device=dev)
+    grid = GridConfig(res, res)
+    counts = torch.maximum(survivor_counts(scene0, cam, grid),
+                           survivor_counts(hidden, cam, grid))
+    longest = int(counts.max())
+    overflow_tiles = int((counts > k_max).sum())
+    stream = (StreamConfig(k_max=k_max) if not overflow_tiles else
+              StreamConfig(k_max=k_max, overflow="spill",
+                           max_spill_passes=next_pow2(-(-longest // k_max))))
+    plan = RenderPlan(grid=grid, test=TestConfig(precision=MIXED),
+                      stream=stream)
+    with torch.no_grad():
+        target = plan.render(hidden, cam).image
+    del hidden
+    g = grid.make()
+    tape = (TAPE_BYTES_PER_PIXEL_ENTRY * g.num_tiles * g.tile ** 2 * k_max
+            * plan.n_passes)
+    tc = training.TrainConfig()
+    state = training.init_state(scene0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for step in range(1, cfg["steps"] + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = training.value_and_grad(state.scene, cam, target, plan,
+                                              tc.ssim_weight)
+        leaves = grad_leaves(grads)
+        finite = (sum(int(torch.isfinite(x).sum()) for x in leaves)
+                  / sum(x.numel() for x in leaves))
+        state = training.adam_update(state, grads, tc)
+        torch.cuda.synchronize()
+        rows.append(dict(step=step, wall_ms=(time.perf_counter() - t0) * 1e3,
+                         loss=float(loss), finite_share=finite))
+        del grads, leaves
+        log(f"[train 9c] step {step}: wall {rows[-1]['wall_ms']:.0f} ms, "
+            f"loss {rows[-1]['loss']:.5f}, finite gradient share "
+            f"{finite:.6f}")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profiled_grad(plan, state.scene, cam, target)
+    prof.pop("grads")
+    check(prof["loss"] < rows[0]["loss"],
+          f"train 9c: loss {rows[0]['loss']} -> {prof['loss']} after "
+          f"{cfg['steps']} steps did not fall")
+    check_no_launches("train 9c")
+    walls = [r["wall_ms"] for r in rows]
+    log(f"[train 9c] {res}x{res}, {cfg['n']} Gaussians, MIXED CAT, k_max "
+        f"{k_max}: longest survivor list {longest}, {overflow_tiles} tiles "
+        f"over k_max -> {stream.overflow.value} ({plan.n_passes} "
+        f"pass{'es' if plan.n_passes > 1 else ''}); loss "
+        f"{rows[0]['loss']:.5f} -> {prof['loss']:.5f} after "
+        f"{cfg['steps']} steps; ms a step {min(walls):.0f}-{max(walls):.0f} "
+        f"(mean of steps 2-{cfg['steps']} "
+        f"{sum(walls[1:]) / max(len(walls) - 1, 1):.0f}); profiled "
+        f"forward {prof['fwd_device_ms']:.1f} device ms, backward "
+        f"{prof['bwd_device_ms']:.1f} device ms; peak memory "
+        f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB over the "
+        f"{base / 1e9:.2f} GB held before) against the tape's reckoning "
+        f"{tape / 1e9:.2f} GB ({TAPE_BYTES_PER_PIXEL_ENTRY} B a pixel-entry)")
+    for label in ("fwd", "bwd"):
+        log(f"[train 9c] top 5 device kernels, {label}: " + "; ".join(
+            f"{k[:60]} {v:.1f} ms" for k, v in prof[f"{label}_top"]))
+    trained = GaussianScene(*(getattr(state.scene, f).detach()
+                              for f in training.SCENE_FIELDS))
+    return dict(longest=longest, overflow_tiles=overflow_tiles,
+                policy=stream.overflow.value, passes=plan.n_passes,
+                steps=rows, loss_after=prof["loss"],
+                fwd_device_ms=prof["fwd_device_ms"],
+                bwd_device_ms=prof["bwd_device_ms"],
+                fwd_top=prof["fwd_top"], bwd_top=prof["bwd_top"],
+                peak_bytes=peak, base_bytes=base, tape_reckoning_bytes=tape,
+                trained=trained, plan=plan, cam=cam)
+
+
+def phase_train_serve(trained, plan, cam) -> dict:
+    """9d: the trained scene through the serving plan (K1 and K2), held
+    within 2e-4 of the all-"torch" plan's frame, K1 and K2 once a pass."""
+    served = dataclasses.replace(
+        plan, test=dataclasses.replace(plan.test, backend="cuda"),
+        raster=RasterConfig(fused=True))
+    with torch.no_grad():
+        want, plain_ms = sync_wall_ms(lambda: plan.render(trained, cam))
+        reset_launches()
+        got, ms = sync_wall_ms(lambda: served.render(trained, cam))
+        launches = check_launches("train 9d", served.n_passes)
+        err = held_to_plain(got, want, "train 9d")
+    log(f"[train 9d] trained scene served through K1 and K2: max |Δ| "
+        f"{err:.2e} against the all-\"torch\" frame (bound 2e-4); launches "
+        f"{launches} for {served.n_passes} pass(es); frame {ms:.1f} ms "
+        f"(all-\"torch\" {plain_ms:.1f} ms)")
+    return dict(max_abs_err=err, launches=launches, passes=served.n_passes,
+                frame_ms=ms, plain_frame_ms=plain_ms)
+
+
+def phase_train_resume(cfg: dict, dev) -> dict:
+    """9e: `fit` under a FaultManager (save_every 3) for 6 steps of 9a's
+    fit, then a second run that holds only the step-3 checkpoint resumed
+    to step 6, under deterministic algorithms: bit-equal to the
+    uninterrupted run (scene, moments, step and the losses of steps 4-6).
+    The checkpoints go under build/train_ckpt and are removed after."""
+    res = cfg["res"]
+    scene = seeded_scene(cfg, dev)
+    cam = default_camera(res, res, device=dev)
+    target = sinusoid_target(res, dev)
+    plan = RenderPlan(grid=GridConfig(res, res),
+                      test=TestConfig(precision=FULL_FP32),
+                      stream=StreamConfig(k_max=cfg["k_max"]))
+    root = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def manager(name):
+        return FaultManager(FaultConfig(
+            ckpt_dir=os.path.join(root, name), save_every=RESUME_EVERY,
+            install_sigterm_hook=False))
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            full = manager("full")
+            (want, want_losses), full_ms = sync_wall_ms(lambda: training.fit(
+                scene, cam, target, plan, steps=RESUME_STEPS, fault=full))
+            saved = sorted(os.listdir(full.cfg.ckpt_dir))
+            resumed = manager("resumed")
+            step3 = f"step_{RESUME_EVERY:08d}"
+            shutil.copytree(os.path.join(full.cfg.ckpt_dir, step3),
+                            os.path.join(resumed.cfg.ckpt_dir, step3))
+            (got, losses), resume_ms = sync_wall_ms(lambda: training.fit(
+                scene, cam, target, plan, steps=RESUME_STEPS,
+                fault=resumed))
+            like = training.init_state(scene)
+            a = ckpt.restore(full.cfg.ckpt_dir, RESUME_STEPS, like)
+            b = ckpt.restore(resumed.cfg.ckpt_dir, RESUME_STEPS, like)
+        nondet = sorted({str(w.message).split("\n")[0][:120] for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(root, ignore_errors=True)
+    check(saved == [f"step_{s:08d}" for s in (3, 6)],
+          f"train 9e: checkpoints {saved}")
+    same = [torch.equal(x, y) for x, y in zip(ckpt.flatten(a),
+                                               ckpt.flatten(b))]
+    same_scene = all(torch.equal(getattr(got, f), getattr(want, f))
+                     for f in training.SCENE_FIELDS)
+    same_losses = torch.equal(losses, want_losses[RESUME_EVERY:])
+    diff = max(float((x - y).abs().max()) for x, y in
+               zip(ckpt.flatten(a), ckpt.flatten(b)))
+    log(f"[train 9e] fit {RESUME_STEPS} steps under a FaultManager (saved "
+        f"{saved}), resumed from step {RESUME_EVERY} to "
+        f"{RESUME_STEPS}, deterministic algorithms: state bit-equal "
+        f"{all(same)} ({sum(same)}/{len(same)} leaves, max |Δ| {diff:.2e}), "
+        f"scene {same_scene}, losses of steps 4-6 {same_losses}; "
+        f"nondeterministic-op warnings {nondet or 'none'}; walls "
+        f"{full_ms:.0f} ms (6 steps) and {resume_ms:.0f} ms (3 steps); "
+        f"build/train_ckpt removed {not os.path.exists(root)}")
+    check(all(same) and same_scene and same_losses,
+          "train 9e: the resumed fit differs from the uninterrupted one")
+    check(int(a.step) == RESUME_STEPS, f"train 9e: step {int(a.step)}")
+    return dict(saved=saved, bit_equal=True, max_abs_diff=diff,
+                nondeterministic_warnings=nondet, full_ms=full_ms,
+                resume_ms=resume_ms)
+
+
+def phase_train(dev=torch.device("cuda"), grads_cfg: dict = TRAIN_GRADS,
+                fit_cfg: dict = TRAIN_FIT, big_cfg: dict = TRAIN_512) -> dict:
+    """Phase 9: 9a gradient parity, 9b the reference's fit, 9c training at
+    512² / 65,536 Gaussians, 9d the trained scene served through K1 and
+    K2, 9e checkpoint and resume. 9a-9c launch no kernel."""
+    reset_launches()
+    grads = timed_phase("train 9a", phase_train_grads, grads_cfg, dev)
+    fit = timed_phase("train 9b", phase_train_fit, fit_cfg, dev)
+    big = timed_phase("train 9c", phase_train_512, big_cfg, dev)
+    torch.cuda.empty_cache()
+    served = timed_phase("train 9d", phase_train_serve, big.pop("trained"),
+                         big.pop("plan"), big.pop("cam"))
+    resume = timed_phase("train 9e", phase_train_resume, grads_cfg, dev)
+    return dict(grads=grads, fit=fit, train512=big, serve=served,
+                resume=resume)
+
+
 def write_json(path, summary: dict) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2283,6 +2704,15 @@ def shards_only(summary: dict, json_path) -> int:
     return 0
 
 
+def train_only(summary: dict, json_path) -> int:
+    """Phase 9 alone. Prints the card line and the contract's last line."""
+    summary["train"] = timed_phase("train", phase_train)
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
 def ok_line() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2309,6 +2739,10 @@ def main() -> int:
                         help="run only the build and phase 8 (tile- and "
                         "frame-sharded 1920x1088 frames, shard-drop "
                         "recovery)")
+    parser.add_argument("--train-only", action="store_true",
+                        help="run only the build and phase 9 (training on "
+                        "the card, the trained scene served through K1 "
+                        "and K2)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2333,6 +2767,8 @@ def main() -> int:
         return lod_only(summary, args.json)
     if args.shards_only:
         return shards_only(summary, args.json)
+    if args.train_only:
+        return train_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -2391,6 +2827,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     summary["shards"] = timed_phase("shards", phase_shards, plain_images)
     del plain_images
+    torch.cuda.empty_cache()
+    summary["train"] = timed_phase("train", phase_train)
     shard_rows = {"prtu_entry_cat_mask": summary["shards"]["kernels"]["k1"],
                   "blend_tiles_fused": summary["shards"]["kernels"]["k2"]}
 
@@ -2417,7 +2855,8 @@ def main() -> int:
             kernels[-1].update(
                 shard_launches=summary["shards"]["frame"]["launches"][kname],
                 shard_ms=shard_rows[kname]["ms"],
-                shard_bound_ms=shard_rows[kname]["bound_ms"])
+                shard_bound_ms=shard_rows[kname]["bound_ms"],
+                train_launches=summary["train"]["serve"]["launches"][kname])
     write_json(args.json, summary)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,16 +7,20 @@ Layout mirrors the JAX reference package module for module:
     core/      scene, camera, projection, Stage-1 compaction, CAT, blend,
                the staged RenderPlan (stream and dense dataflows, the AABB
                and OBB baselines), the legacy RenderConfig shim, PLY I/O,
-               k-means clustering and contribution scores
+               k-means clustering and contribution scores, and training
+               (`core.training`: autograd through the all-"torch" plan)
     lod/       camera-dependent LOD: build, cluster selection, gather
     kernels/   CUDA kernels (csrc/), their wrappers and plain versions
     obs/       span tracing, the metrics registry and exporters
-    distributed/  the device mesh, the logical-axis rules, shard-drop
-               recovery and the straggler monitor
+    checkpoint/  atomic step checkpoints in the reference's layout
+    distributed/  the device mesh, the logical-axis rules, checkpoint/
+               restart for training, shard-drop recovery and the
+               straggler monitor
     serving/   RenderEngine (batched, optionally over a mesh: frame and
                tile sharding), telemetry, the deadline scheduler and the
                1080p workload
-    convert    numpy -> port types, for parity tests
+    convert    numpy -> port types (and a TrainState back), for parity
+               tests and for carrying state across packages
 """
 from repro_torch.core import (FLICKER_CONFIG, GSCORE_CONFIG, VANILLA_CONFIG,
                               GaussianScene, GridConfig, OverflowPolicy,

@@ -3,6 +3,7 @@
 Each function takes a mapping from field name to array (for instance
 `{f: np.asarray(getattr(obj, f)) for f in fields}` of a reference object)
 and returns the port's type with its tensors on `device`.
+`train_state_to_numpy` goes the other way, for a training state.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.core.camera import Camera
 from repro_torch.core.gaussians import GaussianScene, Projected
+from repro_torch.core.training import TrainState
 from repro_torch.lod.build import LODScene
 
 
@@ -47,3 +49,25 @@ def lod_scene_from_numpy(d: Mapping, device="cpu") -> LODScene:
                                           "radii", "counts", "starts",
                                           "mass")},
         n_real=int(d["n_real"]))
+
+
+def _scene_to_numpy(scene: GaussianScene) -> dict:
+    return {f.name: getattr(scene, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(GaussianScene)}
+
+
+def train_state_from_numpy(d: Mapping, device="cpu") -> TrainState:
+    """`d` has the reference TrainState's fields: "scene", "m" and "v"
+    mappings of a scene's fields, and the () int32 "step"."""
+    return TrainState(
+        scene=scene_from_numpy(d["scene"], device),
+        m=scene_from_numpy(d["m"], device),
+        v=scene_from_numpy(d["v"], device),
+        step=_t(np.asarray(d["step"], dtype=np.int32), device))
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The inverse of `train_state_from_numpy`."""
+    return dict(scene=_scene_to_numpy(state.scene),
+                m=_scene_to_numpy(state.m), v=_scene_to_numpy(state.v),
+                step=state.step.detach().cpu().numpy())

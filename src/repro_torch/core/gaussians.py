@@ -56,6 +56,26 @@ class Projected(NamedTuple):
     eigvals: torch.Tensor    # (N, 2) eigenvalues of cov2d (descending)
 
 
+def _bound(x: torch.Tensor, bound) -> torch.Tensor:
+    # A Python bound becomes a 0-d CPU tensor, which a binary op on a CUDA
+    # tensor takes as a scalar argument (no copy to the device).
+    if isinstance(bound, torch.Tensor):
+        return bound
+    return torch.tensor(bound, dtype=x.dtype)
+
+
+def _max(x: torch.Tensor, bound) -> torch.Tensor:
+    """max(x, bound), the value of `clamp_min`, with the gradient of the
+    reference's `jnp.maximum`: an exact tie splits it in half between the
+    operands (`clamp_min` passes it whole to x)."""
+    return torch.maximum(x, _bound(x, bound))
+
+
+def _min(x: torch.Tensor, bound) -> torch.Tensor:
+    """min(x, bound), splitting a tie's gradient as `jnp.minimum` does."""
+    return torch.minimum(x, _bound(x, bound))
+
+
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) wxyz quaternion -> (..., 3, 3) rotation matrix."""
     q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
@@ -92,7 +112,7 @@ def _sym2x2_eig(sxx, sxy, syy):
     """
     tr = sxx + syy
     det = sxx * syy - sxy * sxy
-    disc = torch.sqrt(torch.clamp_min(tr * tr / 4.0 - det, 0.0))
+    disc = torch.sqrt(_max(tr * tr / 4.0 - det, 0.0))
     l1 = tr / 2.0 + disc  # major
     l2 = tr / 2.0 - disc  # minor
     use_x = sxx >= syy
@@ -124,7 +144,7 @@ def project(scene: GaussianScene, camera) -> Projected:
     z = t[:, 2]
     in_front = z > camera.near
 
-    zs = torch.clamp_min(z, camera.near)
+    zs = _max(z, camera.near)
     x_ndc = t[:, 0] / zs
     y_ndc = t[:, 1] / zs
     px = x_ndc * camera.fx + camera.cx
@@ -134,8 +154,8 @@ def project(scene: GaussianScene, camera) -> Projected:
     # EWA: J (2x3) Jacobian of projection; ndc clamped to bound it.
     lim_x = 1.3 * camera.tan_half_fov_x
     lim_y = 1.3 * camera.tan_half_fov_y
-    tx = torch.clamp(x_ndc, -lim_x, lim_x) * zs
-    ty = torch.clamp(y_ndc, -lim_y, lim_y) * zs
+    tx = _min(_max(x_ndc, -lim_x), lim_x) * zs
+    ty = _min(_max(y_ndc, -lim_y), lim_y) * zs
     J = torch.zeros((means.shape[0], 2, 3), dtype=means.dtype,
                     device=means.device)
     J[:, 0, 0] = camera.fx / zs
@@ -150,15 +170,15 @@ def project(scene: GaussianScene, camera) -> Projected:
     syy = cov2d_m[:, 1, 1] + 0.3
     sxy = cov2d_m[:, 0, 1]
 
-    det = torch.clamp_min(sxx * syy - sxy * sxy, 1e-12)
+    det = _max(sxx * syy - sxy * sxy, 1e-12)
     inv_det = 1.0 / det
     conic = torch.stack([syy * inv_det, -sxy * inv_det, sxx * inv_det], -1)
 
     eigvals, eigvecs = _sym2x2_eig(sxx, sxy, syy)
-    sigma_major = torch.sqrt(torch.clamp_min(eigvals[:, 0], 1e-12))
-    sigma_minor = torch.sqrt(torch.clamp_min(eigvals[:, 1], 1e-12))
+    sigma_major = torch.sqrt(_max(eigvals[:, 0], 1e-12))
+    sigma_minor = torch.sqrt(_max(eigvals[:, 1], 1e-12))
     radius = torch.ceil(3.0 * sigma_major)
-    axis_ratio = sigma_major / torch.clamp_min(sigma_minor, 1e-12)
+    axis_ratio = sigma_major / _max(sigma_minor, 1e-12)
 
     on_screen = (
         (px + radius > 0) & (px - radius < camera.width)

@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.gaussians import Projected, ALPHA_MIN
+from repro_torch.core.gaussians import Projected, ALPHA_MIN, _min
 from repro_torch.core.culling import TileGrid, aabb_mask, tile_chunk
 
 ALPHA_MAX = 0.99
@@ -225,7 +225,7 @@ def entry_alpha(pix, mean_k, conic_k, op_k, lane):
     d1 = pix[..., 1] - mean_k[:, None, 1]
     E = (0.5 * (conic_k[:, None, 0] * d0 ** 2 + conic_k[:, None, 2] * d1 ** 2)
          + conic_k[:, None, 1] * d0 * d1)
-    a = torch.clamp_max(op_k[:, None] * torch.exp(-E), ALPHA_MAX)
+    a = _min(op_k[:, None] * torch.exp(-E), ALPHA_MAX)
     return torch.where(lane & (a >= ALPHA_MIN), a, torch.zeros_like(a))
 
 

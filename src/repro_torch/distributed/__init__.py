@@ -1,10 +1,12 @@
-"""Multi-device rendering in one process: a mesh of torch devices.
+"""Multi-device rendering in one process (a mesh of torch devices), and
+fault tolerance for serving and training.
 
     sharding — `Mesh` ((data, model) array of `torch.device`s, repeats
                allowed: `[torch.device("cuda:0")] * 4` is four virtual
                shards on one card), the logical-axis rules rendering uses
                (`resolve`), and the active-mesh stack (`use_mesh`)
-    fault    — shard-drop recovery for tile-sharded serving
+    fault    — checkpoint/restart for training (`FaultConfig`,
+               `FaultManager`), shard-drop recovery for tile-sharded serving
                (`render_with_shard_recovery`, `ShardDropInjector`) and the
                step-time `StragglerMonitor`
 
@@ -14,13 +16,14 @@ One controller drives every device, as the reference's single-controller
 """
 from repro_torch.distributed.sharding import (Mesh, active_mesh, dp_axes,
                                               on_device, resolve, use_mesh)
-from repro_torch.distributed.fault import (ShardDropInjector,
+from repro_torch.distributed.fault import (FaultConfig, FaultManager,
+                                           ShardDropInjector,
                                            ShardRecoveryReport,
                                            StragglerMonitor,
                                            render_with_shard_recovery)
 
 __all__ = [
     "Mesh", "active_mesh", "dp_axes", "on_device", "resolve", "use_mesh",
-    "ShardDropInjector", "ShardRecoveryReport", "StragglerMonitor",
-    "render_with_shard_recovery",
+    "FaultConfig", "FaultManager", "ShardDropInjector",
+    "ShardRecoveryReport", "StragglerMonitor", "render_with_shard_recovery",
 ]

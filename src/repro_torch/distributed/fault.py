@@ -1,5 +1,9 @@
-"""Fault tolerance, serving side and host side.
+"""Fault tolerance: checkpoint/restart for training, the serving side and
+the host side.
 
+  FaultManager               — checkpoint/restart orchestration: periodic
+                               saves (`checkpoint.ckpt`), a preemption-
+                               signal hook, resume from the latest step.
   StragglerMonitor           — per-step wall-time ring buffer; flags steps
                                slower than median x threshold.
   ShardDropInjector          — chaos hook that marks tile shards as lost
@@ -13,17 +17,71 @@
                                under a bit-parity gate, so the frame
                                completes instead of failing.
 
-The training side (checkpoint/restart and elastic resharding) waits for a
-training path in this package.
+Elastic resharding (re-placing a checkpoint's leaves over another mesh)
+waits for the sharded LM substrate, whose leaves it places.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import signal
+import tempfile
 import time
 from collections import deque
+from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.checkpoint import ckpt
+
+
+@dataclasses.dataclass
+class FaultConfig:
+    # The reference's default is a fixed /tmp path; this one follows TMPDIR.
+    ckpt_dir: str = dataclasses.field(default_factory=lambda: os.path.join(
+        tempfile.gettempdir(), "repro_ckpt"))
+    save_every: int = 50
+    keep: int = 3
+    install_sigterm_hook: bool = True
+
+
+class FaultManager:
+    """Owns the save/restore lifecycle of a training run."""
+
+    def __init__(self, cfg: FaultConfig):
+        self.cfg = cfg
+        self._preempted = False
+        if cfg.install_sigterm_hook:
+            try:
+                signal.signal(signal.SIGTERM, self._on_sigterm)
+            except ValueError:
+                pass   # not in the main thread
+
+    def _on_sigterm(self, signum, frame):
+        # Preemption notice: request a final save at the next step
+        # boundary instead of dying mid-step.
+        self._preempted = True
+
+    @property
+    def preempted(self) -> bool:
+        return self._preempted
+
+    def maybe_save(self, step: int, tree) -> Optional[str]:
+        if self._preempted or step % self.cfg.save_every == 0:
+            path = ckpt.save(self.cfg.ckpt_dir, step, tree)
+            ckpt.prune_old(self.cfg.ckpt_dir, self.cfg.keep)
+            return path
+        return None
+
+    def restore_latest(self, tree_like):
+        """Returns (tree, step) — (tree_like, 0) when no checkpoint exists.
+        A fit from one view replays no data, so resuming at step N repeats
+        no step and skips none."""
+        step = ckpt.latest_step(self.cfg.ckpt_dir)
+        if step is None:
+            return tree_like, 0
+        return ckpt.restore(self.cfg.ckpt_dir, step, tree_like), step
 
 
 class StragglerMonitor:

@@ -15,7 +15,8 @@ folded into the tile axis equal to per-frame launches bit for bit, K1 and
 K2 both; an LOD build bit-equal across two runs from one seed, and an LOD
 frame through K1 and K2 within 2e-4 of its plain versions; a frame
 tile-sharded over four virtual shards of the card equal to the
-single-device frame bit for bit); K4 (dense CAT)
+single-device frame bit for bit; a scene trained 3 steps on the card,
+served through K1 and K2 within 2e-4 of the all-"torch" frame); K4 (dense CAT)
 exact
 under FULL_FP32 and MIXED; K3 (full-sweep blend) rgb/trans atol 1e-6;
 the kernels' fp16/fp8 rounding (`prtu.alg1_quant`) bit-equal to the plain
@@ -549,6 +550,45 @@ def check_sharded_equals_single(cuda):
     assert float(gc["tile_shards"]) == 4.0
 
 
+def check_fit_on_card(cuda):
+    """Train unfused, serve fused: 3 Adam steps on the card through the
+    all-"torch" plan (no kernel launched, finite gradients, the loss
+    falling), then the trained scene through K1 and K2 within 2e-4 of the
+    all-"torch" frame."""
+    import dataclasses
+    from repro_torch.core import (FULL_FP32, GridConfig, RasterConfig,
+                                  RenderPlan, StreamConfig, TestConfig,
+                                  default_camera, random_scene, training)
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    scene = random_scene(gen, 500, scale_range=(-2.8, -2.0), stretch=3.5,
+                         opacity_range=(-1.0, 1.0))
+    cam = default_camera(64, 64, device=cuda)
+    y, x = torch.meshgrid(torch.arange(64, device=cuda) / 64,
+                          torch.arange(64, device=cuda) / 64, indexing="ij")
+    target = torch.stack([0.5 + 0.4 * torch.sin(3 * x + 2 * y),
+                          0.5 + 0.4 * torch.cos(2 * y),
+                          0.5 + 0.4 * torch.sin(4 * x * y)], -1)
+    plan = RenderPlan(grid=GridConfig(64, 64),
+                      test=TestConfig(precision=FULL_FP32),
+                      stream=StreamConfig(k_max=500))
+    _, grads = training.value_and_grad(scene, cam, target, plan, 0.2)
+    assert all(bool(torch.isfinite(getattr(grads, f)).all())
+               for f in training.SCENE_FIELDS)
+    before = (prtu.launches, render.launches)
+    trained, losses = training.fit(scene, cam, target, plan, steps=3)
+    assert (prtu.launches, render.launches) == before
+    assert losses.shape == (3,) and bool(torch.isfinite(losses).all())
+    assert float(losses[-1]) < float(losses[0])
+    served = dataclasses.replace(plan, test=TestConfig(precision=FULL_FP32,
+                                                       backend="cuda"),
+                                 raster=RasterConfig(fused=True))
+    with torch.no_grad():
+        want = plan.render(trained, cam).image
+        got = served.render(trained, cam).image
+    assert (prtu.launches - before[0], render.launches - before[1]) == (1, 1)
+    assert float((got - want).abs().max()) <= 2e-4
+
+
 @pytest.mark.cuda
 def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     """K2 with ~30% of the mini-tile bits set, wide opaque entries (pixels
@@ -558,7 +598,9 @@ def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     per-frame launches (`check_folded_batch_equals_per_frame`), an LOD
     build and frame on the card (`check_lod_build_and_render`), and a
     frame tile-sharded over four virtual shards of the card against the
-    single-device frame (`check_sharded_equals_single`)."""
+    single-device frame (`check_sharded_equals_single`), and a 3-step fit
+    on the card whose scene is then served through K1 and K2
+    (`check_fit_on_card`)."""
     t = 24
     rng = np.random.default_rng(11)
     first = [torch.from_numpy(x) for x in blend_operands(12, t=t, k=128)]
@@ -580,6 +622,7 @@ def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     check_folded_batch_equals_per_frame(cuda)
     check_lod_build_and_render(cuda)
     check_sharded_equals_single(cuda)
+    check_fit_on_card(cuda)
 
 
 @pytest.mark.cuda

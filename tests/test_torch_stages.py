@@ -166,6 +166,75 @@ def test_project_matches_reference(scenes, scene_name, cam64):
         assert diff <= 0.005 * n, (name, diff)
 
 
+def test_gradient_at_clamp_ties_matches_reference():
+    """At an exact tie `jnp.maximum`/`minimum`/`clip` split the gradient in
+    half between the operands; the port's projection and blend must too
+    (`torch.clamp` would pass it whole). Ties: x/z and y/z on ±1.3·tan of
+    the half field of view (the Jacobian clip), z on the near plane, and an
+    alpha of exactly ALPHA_MAX at a pixel centre. A tie passed whole is off
+    by 19-150%; float reassociation stays under the 1e-4 tolerance."""
+    jcam = jcamera.default_camera(32, 32)
+    cam = convert.camera_from_numpy(fields(jcam))
+    lim = float(1.3 * cam.tan_half_fov_x)      # float32, as both compute it
+    near = np.float32(0.2)
+    rng = np.random.default_rng(5)
+    n = 4
+    scene = dict(
+        means=np.array([[lim, 0.1, 1.0], [0.1, -0.2, near],
+                        [-lim, lim, 1.0], [0.2, 0.1, 3.0]], np.float32),
+        log_scales=rng.uniform(-2.5, -1.5, (n, 3)).astype(np.float32),
+        quats=rng.standard_normal((n, 4)).astype(np.float32),
+        opacity_logits=np.ones(n, np.float32),
+        colors=rng.random((n, 3)).astype(np.float32))
+    keys = ("mean2d", "conic", "cov2d", "axis_ratio", "eigvals")
+    jscene = jgauss.GaussianScene(**{k: jnp.asarray(v)
+                                     for k, v in scene.items()})
+    shapes = {k: np.shape(getattr(jgauss.project(jscene, jcam), k))
+              for k in keys}
+    w = {k: rng.standard_normal(s).astype(np.float32)
+         for k, s in shapes.items()}
+
+    def jloss(s):
+        p = jgauss.project(s, jcam)
+        return sum(jnp.sum(getattr(p, k) * w[k]) for k in keys)
+
+    want = jax.grad(jloss)(jscene)
+    params = {k: t(v).requires_grad_(True) for k, v in scene.items()}
+    p = tgauss.project(tgauss.GaussianScene(**params), cam)
+    loss = sum((getattr(p, k) * t(w[k])).sum() for k in keys)
+    loss.backward()
+    for k in ("means", "log_scales", "quats"):
+        np.testing.assert_allclose(params[k].grad.numpy(),
+                                   np.asarray(getattr(want, k)),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+
+    # Blend: one Gaussian centred on pixel (5, 5) of a 16 x 16 frame with
+    # opacity ALPHA_MAX, so alpha = min(o·exp(0), ALPHA_MAX) ties there.
+    tgrid16, jgrid = TTileGrid(16, 16), jraster.TileGrid(16, 16)
+    jproj = jgauss.project(jscene, jcam)._replace(
+        mean2d=jnp.asarray([[5.5, 5.5]] * n, jnp.float32),
+        opacity=jnp.full((n,), traster.ALPHA_MAX, jnp.float32))
+    lists = np.array([[0]], np.int32)
+    valid = np.array([[True]])
+    wrgb = rng.standard_normal((1, 256, 3)).astype(np.float32)
+
+    def jblend(op):
+        st, _ = jraster.blend_pass(jproj._replace(opacity=op), jgrid,
+                                   jnp.asarray(lists), jnp.asarray(valid),
+                                   None, jraster.init_blend_state(1, 256))
+        return jnp.sum(st.rgb * wrgb)
+
+    want_op = np.asarray(jax.grad(jblend)(jproj.opacity))
+    tproj = convert.projected_from_numpy(fields(jproj))
+    op = tproj.opacity.clone().requires_grad_(True)
+    st, _ = traster.blend_pass(tproj._replace(opacity=op), tgrid16,
+                               t(lists), t(valid), None,
+                               traster.init_blend_state(1, 256))
+    (st.rgb * t(wrgb)).sum().backward()
+    np.testing.assert_allclose(op.grad.numpy(), want_op, rtol=1e-4,
+                               atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # Stage 1: depth order (F2) and the chunked AABB compaction
 # ---------------------------------------------------------------------------
