@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--json PATH] [--passes-only | --offpath-only |
                           --sessions-only | --lod-only | --shards-only |
-                          --train-only]
+                          --train-only | --serve-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -165,17 +165,53 @@ Phases, in order:
      e. `fit` under a FaultManager (save_every 3, build/train_ckpt) for 6
         steps of 9a's fit, and a run resumed from the step-3 checkpoint,
         under deterministic algorithms: bit-equal; the checkpoints removed
+  10. runs after 9: the serving driver, `repro_torch.launch.serve`, on
+     the card.
+     a. render mode through `serve.run_render`: `--frames 8 --res 1024
+        --gaussians 131072 --max-batch 2 --pallas` (p1024's width and
+        scene size, `register_demo_scenes`' two scenes probed at 1024²
+        and 512²; the CTU on K1, the plain unfused blend): each wave's
+        wall and the telemetry snapshot; K1 launched once a pass of each
+        dispatch and K2 never; every served frame within 2e-4 of the
+        all-"torch" plan's render of its scene and camera. max_batch is 2,
+        not 4: the scenes probe to k_max 8192, and a batch of 4 folds
+        16384 x 8192 entries x 16 mini-tiles, K1's int32 index bound
+        (`prtu.check_entry_index`); should a fold still reach it, the
+        driver reruns at half the max_batch and says why
+     b. LM mode at full width: `--arch qwen1.5-0.5b --batch 4 --prefill
+        512 --decode 64` from seed-0 weights: prefill ms (the driver's
+        first call, and warm), decode ms/token (median and p90 after the
+        first step), tokens/s, the parameters' bytes against
+        `param_count()`, `max_memory_allocated`, one warm decode step's
+        device-busy ms under torch.profiler against its wall; every
+        logit finite
+     c. serving self-consistency at full width, the reference's gates:
+        64 teacher-forced decode steps (batch 1) against `forward`'s
+        logits, and the int8 KV cache (kv_quant) against the bf16 cache
+        over the same tokens: relative RMS <= 0.05 and argmax agreement
+        >= 0.9 each; the int8 cache's bytes <= 0.55 of the bf16 cache's.
+        Measured first on the driver's seed-0 weights, then gated on the
+        same weights with the attention projections rescaled to the
+        contraction dimension's fan-in (`fan_in_attention`): under the
+        reference's init the attention logits have a std of ~60 and a
+        rounding difference grows several-fold a layer, so at 24 layers
+        decode and forward part however each is computed
+     d. card against CPU: the same weights of reduced qwen1.5-0.5b under
+        float32 compute run forward, prefill and 8 decode steps on the
+        card and on the CPU: logits within rtol 1e-4 and atol 1e-4 x
+        max|logit|
   5. one {"kernels": [...]} line (K1's and K2's rows also carry phase 8's
      shard_launches, shard_ms and shard_bound_ms, and phase 9d's
-     train_launches), the card line, and as the last line
-     {"ok": true, "device": {...}}
+     train_launches; K1's also phase 10a's driver_launches), the card
+     line, and as the last line {"ok": true, "device": {...}}
 
 Exits non-zero without printing a result when CUDA is unavailable or any
 phase fails. `--json PATH` also writes every measurement to PATH.
 `--passes-only` runs phases 1 and 4c alone and prints their sums as its
 last line; `--sessions-only` runs phases 1 and 4g; `--lod-only` runs
 phases 1 and 7; `--shards-only` runs phases 1 and 8 (rendering 8d's
-plain frames itself); `--train-only` runs phases 1 and 9; `--offpath-only` runs phase 1, the 1024² setup,
+plain frames itself); `--train-only` runs phases 1 and 9; `--serve-only`
+runs phases 1 and 10; `--offpath-only` runs phase 1, the 1024² setup,
 phase 6a and K3 on the 1024² frame's lists, and prints their times on
 the line before the card line and the contract's last line. A copy of this script placed
 at the root of another commit's tree (`git archive`) times that commit's
@@ -255,6 +291,9 @@ from repro_torch.serving import (HD_SCENE_KW, AdmissionRejected,  # noqa: E402
                                  max_batch_for, open_loop_trace,
                                  register_hd1080_scene, replay_open_loop)
 from repro_torch.serving.sharding import tile_mesh  # noqa: E402
+from repro_torch.configs import get_arch, reduced  # noqa: E402
+from repro_torch.launch import serve as serve_driver  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving.workloads import (arrival_camera,  # noqa: E402
                                            hd1080_plan, trajectory_cameras)
 
@@ -2624,6 +2663,287 @@ def phase_train(dev=torch.device("cuda"), grads_cfg: dict = TRAIN_GRADS,
                 resume=resume)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the serving driver (launch/serve.py), render and LM modes
+# ---------------------------------------------------------------------------
+
+# The demo scenes probe to k_max 8192 at 1024²; a batch of 4 folds 16,384
+# tiles, and 16384 x 8192 x 16 mini-tiles reach K1's int32 index (2**31),
+# so the driver runs at max_batch 2 (`run_render_driver` would halve it
+# again should a fold still reach it).
+DRIVER_RENDER = ["--mode", "render", "--device", "cuda", "--frames", "8",
+                 "--res", "1024", "--gaussians", "131072", "--max-batch",
+                 "2", "--pallas"]
+DRIVER_LM = ["--mode", "lm", "--device", "cuda", "--arch", "qwen1.5-0.5b",
+             "--batch", "4", "--prefill", "512", "--decode", "64"]
+LM_SELF_TOKENS = 64              # 10c: teacher-forced positions, batch 1
+LM_SELF_SEED = 10
+CARD_CPU_PROMPT, CARD_CPU_DECODE = 20, 8
+
+
+def run_render_driver(argv: list) -> tuple:
+    """`serve.run_render` on `argv`; should a folded batch exceed K1's
+    int32 index, rerun with the next smaller max_batch. Returns (the
+    driver's output, the max_batch it ran at, launches during its run)."""
+    args = serve_driver.parser().parse_args(argv)
+    while True:
+        reset_launches()
+        try:
+            out = serve_driver.run_render(
+                args, log=lambda m: log(f"[serve 10a] {m}"))
+            return out, args.max_batch, launches_now()
+        except ValueError as e:
+            if "int32 index" not in str(e) or args.max_batch == 1:
+                raise
+            log(f"[serve 10a] max_batch {args.max_batch} folds too many "
+                f"tile-list entries for K1's int32 index ({e}); rerunning "
+                f"at max_batch {args.max_batch // 2}")
+            args.max_batch //= 2
+            torch.cuda.empty_cache()
+
+
+def phase_driver_render(argv: list = DRIVER_RENDER) -> dict:
+    """10a: the render driver on the card, held to the plain render."""
+    out, max_batch, launches = run_render_driver(argv)
+    engine, results = out["engine"], out["results"]
+    # One dispatch per (scene, resolution, batch wall): each ran K1 once a
+    # pass and the unfused blend, so no K2.
+    dispatches = {}
+    for r in results:
+        cam = r.frame.request.camera
+        dispatches[(r.frame.request.scene, cam.height, cam.width,
+                    r.render_s)] = r.frame.passes_run
+    passes = sum(dispatches.values())
+    check(launches["prtu_entry_cat_mask"] == passes,
+          f"serve 10a: K1 launched {launches['prtu_entry_cat_mask']} times "
+          f"for {passes} dispatch passes")
+    check(passes > 0, "serve 10a: K1 never launched")
+    check(launches["blend_tiles_fused"] == 0,
+          "serve 10a: K2 launched on the driver's unfused path")
+    errs = []
+    for i, r in enumerate(results):
+        req = r.frame.request
+        check(bool(torch.isfinite(r.image).all()), "serve 10a: non-finite")
+        want = plain_render(engine, req.scene, req.camera)
+        errs.append(held_to_plain(r.frame, want, f"serve 10a request {i}"))
+    snapshot = engine.telemetry.snapshot()
+    log(f"[serve 10a] {engine.telemetry.format_snapshot()}")
+    k_max = {n: engine._scenes[n].k_max for n in engine.scene_names()}
+    log(f"[serve 10a] {len(results)} frames in {len(dispatches)} dispatches "
+        f"(max_batch {max_batch}), scene k_max {k_max}; launches "
+        f"{launches} for {passes} passes; max |Δ| against the plain render "
+        f"{max(errs):.2e} (bound 2e-4); waves ms "
+        f"{[round(w['ms'], 1) for w in out['waves']]}")
+    return dict(frames=len(results), dispatches=len(dispatches),
+                passes=passes, launches=launches, max_batch=max_batch,
+                k_max=k_max, max_abs_err=max(errs), waves=out["waves"],
+                telemetry={k: v for k, v in snapshot.items()
+                           if isinstance(v, (int, float))})
+
+
+def cache_bytes(caches) -> int:
+    kv = caches["kv"]
+    return nbytes(*kv["kv"], *kv.get("scale", ()))
+
+
+def logits_agree(got, want, label: str, rms_max=0.05, agree_min=0.9):
+    """Relative RMS and argmax agreement of two logit sets, checked
+    against the reference's own gates (`tests/test_kv_quant.py`)."""
+    got, want = got.float(), want.float()
+    rms = float(torch.sqrt(((got - want) ** 2).mean())
+                / torch.sqrt((want ** 2).mean()))
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    check(rms <= rms_max and agree >= agree_min,
+          f"{label}: relative RMS {rms:.4f} (<= {rms_max}), argmax "
+          f"agreement {agree:.3f} (>= {agree_min})")
+    return dict(rel_rms=rms, agreement=agree)
+
+
+def decode_tokens(model, tokens) -> tuple:
+    """Teacher-forced decode of `tokens` (B, S) from fresh caches of
+    length S: (logits (B, S, V), caches)."""
+    b, s = tokens.shape
+    caches, outs = model.init_caches(b, s), []
+    for i in range(s):
+        lg, caches = model.decode_step(caches, tokens[:, i:i + 1])
+        outs.append(lg)
+    return torch.stack(outs, 1), caches
+
+
+def phase_driver_lm(argv: list = DRIVER_LM) -> dict:
+    """10b: the LM driver at full width."""
+    args = serve_driver.parser().parse_args(argv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = sync_wall_ms(lambda: serve_driver.lm_model(args))
+    cfg = model.cfg
+    param_bytes = nbytes(*model.state_dict().values())
+    out = serve_driver.run_lm(args, model,
+                              log=lambda m: log(f"[serve 10b] {m}"))
+    finite = bool(torch.isfinite(out["prefill_logits"].float()).all()) and \
+        all(bool(torch.isfinite(x.float()).all()) for x in out["step_logits"])
+    check(finite, "serve 10b: non-finite logits")
+    steps = sorted(out["step_ms"][1:])
+    median = steps[len(steps) // 2]
+    p90 = steps[min(len(steps) - 1, int(0.9 * len(steps)))]
+    batch = serve_driver.lm_batch(cfg, args.batch, args.prefill,
+                                  model.device)
+    _, warm_prefill = sync_wall_ms(lambda: model.prefill(batch))
+    caches = model.init_caches(args.batch, args.prefill + args.decode)
+    tok = torch.ones((args.batch, 1), dtype=torch.long, device=model.device)
+    walls = []
+    for _ in range(5):
+        (_, caches), ms = sync_wall_ms(lambda: model.decode_step(caches, tok))
+        walls.append(ms)
+    step_wall = sorted(walls)[2]
+    busy, top = device_profile(lambda: model.decode_step(caches, tok))
+    peak = torch.cuda.max_memory_allocated()
+    res = dict(arch=cfg.name, batch=args.batch, prefill=args.prefill,
+               decode=args.decode, init_ms=init_ms, param_bytes=param_bytes,
+               param_count=cfg.param_count(),
+               params=sum(p.numel() for p in model.parameters()),
+               prefill_ms=out["prefill_ms"], warm_prefill_ms=warm_prefill,
+               first_step_ms=out["step_ms"][0], decode_median_ms=median,
+               decode_p90_ms=p90,
+               tokens_per_s=args.batch / (median / 1e3),
+               prefill_tokens_per_s=args.batch * args.prefill
+               / (warm_prefill / 1e3),
+               step_wall_ms=step_wall, step_busy_ms=busy,
+               step_busy_share=busy / step_wall, top_kernels=top[:5],
+               peak_bytes=peak)
+    log(f"[serve 10b] {cfg.name} full width ({res['params']} parameters, "
+        f"{param_bytes / 1e9:.3f} GB fp32; param_count() "
+        f"{res['param_count']}): weights drawn in {init_ms:.0f} ms; "
+        f"prefill {args.batch}x{args.prefill} {out['prefill_ms']:.1f} ms "
+        f"first, {warm_prefill:.1f} ms warm "
+        f"({res['prefill_tokens_per_s']:.0f} tokens/s); decode "
+        f"{median:.2f} ms/token median, {p90:.2f} p90 (first step "
+        f"{res['first_step_ms']:.1f}), {res['tokens_per_s']:.0f} tokens/s "
+        f"at batch {args.batch}; one warm step {step_wall:.2f} ms wall, "
+        f"{busy:.2f} ms device-busy ({100 * busy / step_wall:.1f}%); top "
+        f"kernels {[(k, round(v, 3)) for k, v in top[:5]]}; peak "
+        f"{peak / 1e9:.2f} GB; logits finite")
+    return dict(res, model=model)
+
+
+def self_consistency(model, toks, label: str, gate: bool) -> dict:
+    """Teacher-forced decode of `toks` against `forward`, and the int8
+    cache against the bf16 one over the same tokens; checked against the
+    reference's gates when `gate`, else only measured."""
+    cfg = model.cfg
+    (full, _), fwd_ms = sync_wall_ms(lambda: model.forward(dict(tokens=toks)))
+    (dec, caches), dec_ms = sync_wall_ms(lambda: decode_tokens(model, toks))
+    quant = Model(dataclasses.replace(cfg, kv_quant=True), device="meta")
+    quant.load_state_dict(model.state_dict(), assign=True)
+    (dec8, caches8), dec8_ms = sync_wall_ms(lambda: decode_tokens(quant,
+                                                                  toks))
+    limits = (0.05, 0.9) if gate else (math.inf, 0.0)
+    vs_forward = logits_agree(dec, full, f"serve 10c {label} decode vs "
+                              "forward", *limits)
+    vs_bf16 = logits_agree(dec8, dec, f"serve 10c {label} int8 vs bf16 "
+                           "cache", *limits)
+    ratio = cache_bytes(caches8) / cache_bytes(caches)
+    check(ratio <= 0.55, f"serve 10c: int8 cache {ratio:.3f} of bf16's")
+    log(f"[serve 10c] {label}{'' if gate else ' (measured, not gated)'}: "
+        f"{toks.shape[1]} teacher-forced steps vs forward: relative RMS "
+        f"{vs_forward['rel_rms']:.4f}, agreement "
+        f"{vs_forward['agreement']:.3f}; int8 cache vs bf16: relative RMS "
+        f"{vs_bf16['rel_rms']:.4f}, agreement {vs_bf16['agreement']:.3f}"
+        f"{' (gates 0.05, 0.9)' if gate else ''}; cache bytes "
+        f"{cache_bytes(caches8)} vs {cache_bytes(caches)} ({ratio:.3f}, <= "
+        f"0.55); forward {fwd_ms:.1f} ms, decode {dec_ms:.0f} ms (bf16) / "
+        f"{dec8_ms:.0f} ms (int8) for {toks.shape[1]} steps")
+    return dict(vs_forward=vs_forward, int8_vs_bf16=vs_bf16,
+                cache_ratio=ratio, forward_ms=fwd_ms, decode_ms=dec_ms,
+                decode_int8_ms=dec8_ms)
+
+
+def fan_in_attention(model) -> None:
+    """Rescale the attention projections in place to the contraction
+    dimension's fan-in: wq, wk, wv (L, d, heads, hd) by d**-0.5 and wo
+    (L, heads, hd, d) by (heads * hd)**-0.5, where the reference's init
+    (and so the driver's) uses the second-to-last dimension, heads and
+    hd."""
+    a = model.layers.attn
+    _, d, hp, hd = a.wq.shape
+    with torch.no_grad():
+        for w in (a.wq, a.wk, a.wv):
+            w.mul_((w.shape[-2] / d) ** 0.5)
+        a.wo.mul_((hd / (hp * hd)) ** 0.5)
+
+
+def phase_lm_self(model) -> dict:
+    """10c at full width. With the driver's weights (the reference's init:
+    the attention projections' fan-in is taken over the heads, so q and k
+    come out ~8x too large and the attention logits have a std of ~60)
+    the network amplifies any rounding difference several-fold a layer,
+    so decode against forward is measured and printed, not gated. The
+    reference's gates then hold on the same weights with the attention
+    projections at the contraction dimension's fan-in."""
+    gen = torch.Generator(device="cpu").manual_seed(LM_SELF_SEED)
+    toks = torch.randint(0, model.cfg.vocab_size, (1, LM_SELF_TOKENS),
+                         generator=gen).to(model.device)
+    seed0 = self_consistency(model, toks, "seed-0 weights", gate=False)
+    fan_in_attention(model)
+    gated = self_consistency(model, toks, "fan-in attention", gate=True)
+    return dict(seed0=seed0, fan_in=gated)
+
+
+def card_vs_cpu_logits(dev) -> dict:
+    """Reduced qwen1.5-0.5b under float32 compute: forward, prefill and 8
+    decode steps of the same weights on `dev` and on the CPU. Returns the
+    largest |Δ| over max|logit| of each, checked against rtol 1e-4 and
+    atol 1e-4 x max|logit|."""
+    cfg = dataclasses.replace(reduced(get_arch("qwen1.5-0.5b")),
+                              dtype="float32", attn_chunk=8)
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = Model(cfg, device="meta")
+    card.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()},
+                         assign=True)
+    gen = torch.Generator(device="cpu").manual_seed(LM_SELF_SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (2, CARD_CPU_PROMPT),
+                           generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, CARD_CPU_DECODE),
+                         generator=gen)
+    out = {}
+    for label, fn in (
+            ("forward", lambda m, d: m.forward(dict(tokens=prompt.to(d)))[0]),
+            ("prefill", lambda m, d: m.prefill(dict(tokens=prompt.to(d)))[0]),
+            ("decode", lambda m, d: decode_tokens(m, toks.to(d))[0])):
+        want, got = fn(cpu, "cpu"), fn(card, dev).cpu()
+        scale = float(want.abs().max())
+        err = (got - want).abs()
+        check(bool((err <= 1e-4 * scale + 1e-4 * want.abs()).all()),
+              f"card vs CPU {label}: max |Δ| {float(err.max())} "
+              f"(max|logit| {scale})")
+        out[label] = float(err.max()) / scale
+    return out
+
+
+def phase_lm_card_vs_cpu() -> dict:
+    """10d: the card against the CPU on the same weights."""
+    out = card_vs_cpu_logits(torch.device("cuda"))
+    log(f"[serve 10d] reduced qwen1.5-0.5b, float32: max |Δ| / max|logit| "
+        f"card vs CPU forward {out['forward']:.2e}, prefill "
+        f"{out['prefill']:.2e}, 8 decode steps {out['decode']:.2e} "
+        f"(bound rtol 1e-4, atol 1e-4 x max|logit|)")
+    return out
+
+
+def phase_driver() -> dict:
+    """Phase 10: 10a-10d."""
+    render_ = timed_phase("serve 10a", phase_driver_render)
+    torch.cuda.empty_cache()
+    lm = timed_phase("serve 10b", phase_driver_lm)
+    model = lm.pop("model")
+    self_ = timed_phase("serve 10c", phase_lm_self, model)
+    del model
+    torch.cuda.empty_cache()
+    card = timed_phase("serve 10d", phase_lm_card_vs_cpu)
+    return dict(render=render_, lm=lm, self_consistency=self_,
+                card_vs_cpu=card)
+
+
 def write_json(path, summary: dict) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2713,6 +3033,15 @@ def train_only(summary: dict, json_path) -> int:
     return 0
 
 
+def serve_only(summary: dict, json_path) -> int:
+    """Phase 10 alone. Prints the card line and the contract's last line."""
+    summary["driver"] = timed_phase("serve", phase_driver)
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
 def ok_line() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2743,6 +3072,10 @@ def main() -> int:
                         help="run only the build and phase 9 (training on "
                         "the card, the trained scene served through K1 "
                         "and K2)")
+    parser.add_argument("--serve-only", action="store_true",
+                        help="run only the build and phase 10 (the serving "
+                        "driver: render mode through K1, the full-width "
+                        "qwen1.5-0.5b LM)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2769,6 +3102,8 @@ def main() -> int:
         return shards_only(summary, args.json)
     if args.train_only:
         return train_only(summary, args.json)
+    if args.serve_only:
+        return serve_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -2829,6 +3164,8 @@ def main() -> int:
     del plain_images
     torch.cuda.empty_cache()
     summary["train"] = timed_phase("train", phase_train)
+    torch.cuda.empty_cache()
+    summary["driver"] = timed_phase("serve", phase_driver)
     shard_rows = {"prtu_entry_cat_mask": summary["shards"]["kernels"]["k1"],
                   "blend_tiles_fused": summary["shards"]["kernels"]["k2"]}
 
@@ -2857,6 +3194,10 @@ def main() -> int:
                 shard_ms=shard_rows[kname]["ms"],
                 shard_bound_ms=shard_rows[kname]["bound_ms"],
                 train_launches=summary["train"]["serve"]["launches"][kname])
+        if kname == "prtu_entry_cat_mask":
+            # Phase 10a: the render driver's run.
+            kernels[-1].update(driver_launches=summary["driver"]["render"][
+                "launches"][kname])
     write_json(args.json, summary)
     print(json.dumps({"kernels": kernels}))
     print(card)

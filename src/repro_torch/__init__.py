@@ -19,8 +19,13 @@ Layout mirrors the JAX reference package module for module:
     serving/   RenderEngine (batched, optionally over a mesh: frame and
                tile sharding), telemetry, the deadline scheduler and the
                1080p workload
-    convert    numpy -> port types (and a TrainState back), for parity
-               tests and for carrying state across packages
+    configs/   the architecture registry (all ten of the reference's)
+    models/    the LM's dense family: forward, prefill and decode with
+               bf16 or int8 KV caches (`models.Model`)
+    launch/    the serving CLI (`python -m repro_torch.launch.serve`,
+               render and LM modes) and the one-device mesh
+    convert    numpy -> port types (and a TrainState and LM params back),
+               for parity tests and for carrying state across packages
 """
 from repro_torch.core import (FLICKER_CONFIG, GSCORE_CONFIG, VANILLA_CONFIG,
                               GaussianScene, GridConfig, OverflowPolicy,

@@ -4,6 +4,12 @@ Each function takes a mapping from field name to array (for instance
 `{f: np.asarray(getattr(obj, f)) for f in fields}` of a reference object)
 and returns the port's type with its tensors on `device`.
 `train_state_to_numpy` goes the other way, for a training state.
+
+For the LM, `lm_params_from_numpy` takes the reference's nested parameter
+tree (numpy arrays, key for key) and returns a `state_dict` for
+`models.Model.load_state_dict`; `lm_params_to_numpy` goes the other way;
+`lm_caches_from_numpy` carries decode caches (bf16, or int8 with scales).
+bfloat16 arrays (numpy's `ml_dtypes` bfloat16) cross bit for bit.
 """
 from __future__ import annotations
 
@@ -20,7 +26,11 @@ from repro_torch.lod.build import LODScene
 
 
 def _t(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x)).to(device)
+    x = np.array(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(x).to(device)
 
 
 def scene_from_numpy(d: Mapping, device="cpu") -> GaussianScene:
@@ -71,3 +81,42 @@ def train_state_to_numpy(state: TrainState) -> dict:
     return dict(scene=_scene_to_numpy(state.scene),
                 m=_scene_to_numpy(state.m), v=_scene_to_numpy(state.v),
                 step=state.step.detach().cpu().numpy())
+
+
+def _flat(tree: Mapping, prefix: str = ""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def lm_params_from_numpy(tree: Mapping, device="cpu") -> dict:
+    """The reference's nested LM params -> a `Model` state_dict (keys are
+    the tree paths joined by ".")."""
+    return {k: _t(v, device) for k, v in _flat(tree)}
+
+
+def lm_params_to_numpy(model) -> dict:
+    """A `Model`'s parameters as the reference's nested tree of numpy
+    arrays (float32 parameters; the inverse of `lm_params_from_numpy`)."""
+    out: dict = {}
+    for k, t in model.state_dict().items():
+        node = out
+        *parents, last = k.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = t.detach().cpu().numpy()
+    return out
+
+
+def lm_caches_from_numpy(caches: Mapping, device="cpu") -> dict:
+    """The reference's dense decode caches (`Model.init_caches` /
+    `decode_step`'s) -> the port's: the same nesting, K/V and scales as
+    tensors, `pos` as an int."""
+    kv = caches["kv"]
+    out = dict(kv=tuple(_t(x, device) for x in kv["kv"]))
+    if "scale" in kv:
+        out["scale"] = tuple(_t(x, device) for x in kv["scale"])
+    return dict(kv=out, pos=int(np.asarray(caches["pos"])))

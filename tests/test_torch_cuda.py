@@ -16,7 +16,9 @@ K2 both; an LOD build bit-equal across two runs from one seed, and an LOD
 frame through K1 and K2 within 2e-4 of its plain versions; a frame
 tile-sharded over four virtual shards of the card equal to the
 single-device frame bit for bit; a scene trained 3 steps on the card,
-served through K1 and K2 within 2e-4 of the all-"torch" frame); K4 (dense CAT)
+served through K1 and K2 within 2e-4 of the all-"torch" frame; the LM's
+float32 forward, prefill and decode logits on the card within rtol 1e-4
+of the CPU's); K4 (dense CAT)
 exact
 under FULL_FP32 and MIXED; K3 (full-sweep blend) rgb/trans atol 1e-6;
 the kernels' fp16/fp8 rounding (`prtu.alg1_quant`) bit-equal to the plain
@@ -589,6 +591,40 @@ def check_fit_on_card(cuda):
     assert float((got - want).abs().max()) <= 2e-4
 
 
+def check_lm_card_vs_cpu(cuda):
+    """The LM on the card against the CPU: reduced qwen1.5-0.5b under
+    float32 compute, one set of weights (drawn on the CPU, copied), its
+    forward, prefill and 8 decode steps within rtol 1e-4 and atol 1e-4 x
+    max|logit| on both devices; the card's caches stay on the card."""
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(reduced(get_arch("qwen1.5-0.5b")),
+                              dtype="float32", attn_chunk=8)
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = Model(cfg, device="meta")
+    card.load_state_dict({k: v.to(cuda) for k, v in
+                          cpu.state_dict().items()}, assign=True)
+    gen = torch.Generator().manual_seed(20)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+
+    def run(m, dev):
+        out = [m.forward(dict(tokens=prompt.to(dev)))[0],
+               m.prefill(dict(tokens=prompt.to(dev)))[0]]
+        caches = m.init_caches(2, 8)
+        for i in range(8):
+            lg, caches = m.decode_step(caches, toks[:, i:i + 1].to(dev))
+            out.append(lg)
+        assert caches["kv"]["kv"][0].device.type == torch.device(dev).type
+        return [x.cpu() for x in out]
+
+    for got, want in zip(run(card, cuda), run(cpu, "cpu")):
+        scale = float(want.abs().max())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
 @pytest.mark.cuda
 def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     """K2 with ~30% of the mini-tile bits set, wide opaque entries (pixels
@@ -598,9 +634,10 @@ def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     per-frame launches (`check_folded_batch_equals_per_frame`), an LOD
     build and frame on the card (`check_lod_build_and_render`), and a
     frame tile-sharded over four virtual shards of the card against the
-    single-device frame (`check_sharded_equals_single`), and a 3-step fit
+    single-device frame (`check_sharded_equals_single`), a 3-step fit
     on the card whose scene is then served through K1 and K2
-    (`check_fit_on_card`)."""
+    (`check_fit_on_card`), and the LM's float32 logits on the card
+    against the CPU (`check_lm_card_vs_cpu`)."""
     t = 24
     rng = np.random.default_rng(11)
     first = [torch.from_numpy(x) for x in blend_operands(12, t=t, k=128)]
@@ -623,6 +660,7 @@ def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     check_lod_build_and_render(cuda)
     check_sharded_equals_single(cuda)
     check_fit_on_card(cuda)
+    check_lm_card_vs_cpu(cuda)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,135 @@
+"""The port's serving driver (`python -m repro_torch.launch.serve`) and its
+one-device mesh (`repro_torch.launch.mesh`), on the CPU.
+
+The reference's own driver tests (`test_system.py::test_serve_driver_*`)
+fail on this tree, so the port's driver is held against the port's
+library path, which `test_torch_serving.py` and `test_torch_lm.py` hold
+against the reference:
+
+  render mode   `--device cpu --frames 4 --res 32 --gaussians 200`, with
+                and without `--pallas`: rc 0, and every served frame
+                (image, alpha, counters) bit-equal to a fresh engine of
+                the same configuration serving that request alone
+  lm mode       `--device cpu --arch qwen1.5-0.5b --reduced --batch 1
+                --prefill 32 --decode 3`: rc 0, and the decoded tokens
+                equal greedy decoding through `Model` from the same seed;
+                llava (embeddings input) runs too
+  refusals      an unported family (zamba2-1.2b, hybrid) and `--device
+                cuda` without a CUDA device exit non-zero with a message;
+                `Model` refuses a 2-device mesh
+"""
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.configs import get_arch, reduced
+from repro_torch.distributed.sharding import Mesh
+from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import Model
+from repro_torch.serving import RenderRequest
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+
+def capture(monkeypatch, name: str) -> dict:
+    """Wrap `serve.<name>` so that its result is kept in the returned
+    dict under "out" when `serve.main` runs it."""
+    seen = {}
+    fn = getattr(serve, name)
+
+    def wrapped(*args, **kwargs):
+        seen["out"] = fn(*args, **kwargs)
+        return seen["out"]
+
+    monkeypatch.setattr(serve, name, wrapped)
+    return seen
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_render_driver_frames_equal_engine(monkeypatch, pallas):
+    argv = ["--mode", "render", "--device", "cpu", "--frames", "4",
+            "--res", "32", "--gaussians", "200"] + (["--pallas"] * pallas)
+    seen = capture(monkeypatch, "run_render")
+    assert serve.main(argv) == 0
+    out = seen["out"]
+    results = out["results"]
+    assert len(results) == 4 and sum(w["requests"] for w in out["waves"]) == 4
+    assert out["engine"].plan.test.backend == ("cuda" if pallas else "torch")
+    engine = serve.render_engine(serve.parser().parse_args(argv))
+    for r in results:
+        req = r.frame.request
+        alone, = engine.render_batch([RenderRequest(req.scene, req.camera)])
+        assert alone.batch_size == 1
+        assert torch.equal(r.image, alone.image)
+        assert torch.equal(r.frame.alpha, alone.alpha)
+        assert r.counters.keys() == alone.counters.keys()
+        for k in alone.counters:
+            assert torch.equal(r.counters[k], alone.counters[k]), k
+    # The waves of 1, 2 and 1 requests batched frames together.
+    assert max(r.frame.batch_size for r in results) == 2
+
+
+def test_lm_driver_tokens_equal_library(monkeypatch):
+    argv = ["--mode", "lm", "--device", "cpu", "--arch", "qwen1.5-0.5b",
+            "--reduced", "--batch", "1", "--prefill", "32", "--decode", "3"]
+    seen = capture(monkeypatch, "run_lm")
+    assert serve.main(argv) == 0
+    out = seen["out"]
+    assert out["tokens"].shape == (1, 3)
+    assert len(out["step_ms"]) == 3 and out["prefill_ms"] > 0
+
+    m = Model(reduced(get_arch("qwen1.5-0.5b")), device="cpu", seed=0)
+    logits, _ = m.prefill(dict(tokens=torch.ones((1, 32), dtype=torch.long)))
+    caches = m.init_caches(1, 35)
+    tok, toks = torch.argmax(logits, -1)[:, None], []
+    for _ in range(3):
+        lg, caches = m.decode_step(caches, tok)
+        tok = torch.argmax(lg, -1)[:, None]
+        toks.append(tok)
+    assert torch.equal(out["tokens"], torch.cat(toks, 1))
+    assert caches["pos"] == 3
+
+    assert serve.main(["--mode", "lm", "--device", "cpu", "--arch",
+                       "llava-next-mistral-7b", "--reduced", "--batch", "2",
+                       "--prefill", "16", "--decode", "2"]) == 0
+    assert seen["out"]["tokens"].shape == (2, 2)
+
+
+def test_lm_driver_refuses_unported_family():
+    """`python -m repro_torch.launch.serve` exits non-zero for a hybrid
+    arch and names the family."""
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "lm",
+         "--device", "cpu", "--arch", "zamba2-1.2b", "--reduced", "--batch",
+         "1", "--prefill", "32", "--decode", "3"], capture_output=True,
+        text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert res.returncode != 0
+    assert "'hybrid' is not ported" in res.stderr and not res.stdout
+
+
+def test_driver_refuses_missing_cuda(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for mode in ("render", "lm"):
+        assert serve.main(["--mode", mode]) != 0
+        err = capsys.readouterr().err
+        assert "--device cuda" in err and "is_available() is False" in err
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(reduced(get_arch("qwen1.5-0.5b")))
+
+
+def test_local_mesh_and_model_mesh_rule():
+    mesh = make_local_mesh("cpu")
+    assert mesh.axis_names == ("data", "model")
+    assert mesh.shape == {"data": 1, "model": 1}
+    assert mesh.primary == torch.device("cpu")
+    cfg = reduced(get_arch("qwen1.5-0.5b"))
+    m = Model(cfg, mesh=mesh)
+    assert m.device == torch.device("cpu")
+    for devices in ([["cpu"], ["cpu"]], ["cpu", "cpu"]):
+        with pytest.raises(NotImplementedError, match="sharding"):
+            Model(cfg, mesh=Mesh(devices))
