@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--json PATH] [--passes-only | --offpath-only |
                           --sessions-only | --lod-only | --shards-only |
-                          --train-only | --serve-only]
+                          --train-only | --serve-only | --families-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -168,16 +168,18 @@ Phases, in order:
   10. runs after 9: the serving driver, `repro_torch.launch.serve`, on
      the card.
      a. render mode through `serve.run_render`: `--frames 8 --res 1024
-        --gaussians 131072 --max-batch 2 --pallas` (p1024's width and
+        --gaussians 131072 --max-batch 4 --pallas` (p1024's width and
         scene size, `register_demo_scenes`' two scenes probed at 1024²
         and 512²; the CTU on K1, the plain unfused blend): each wave's
-        wall and the telemetry snapshot; K1 launched once a pass of each
-        dispatch and K2 never; every served frame within 2e-4 of the
-        all-"torch" plan's render of its scene and camera. max_batch is 2,
-        not 4: the scenes probe to k_max 8192, and a batch of 4 folds
-        16384 x 8192 entries x 16 mini-tiles, K1's int32 index bound
-        (`prtu.check_entry_index`); should a fold still reach it, the
-        driver reruns at half the max_batch and says why
+        wall and the telemetry snapshot; K1 launched once a row range of
+        each pass of each dispatch and K2 never; every served frame within
+        2e-4 of the all-"torch" plan's render of its scene and camera. The
+        scenes probe to k_max 8192, so a batch of 4 folds 16384 x 8192
+        entries x 16 mini-tiles, K1's int32 index bound: its wrapper
+        launches the fold in two row ranges (`prtu.entry_row_ranges`),
+        and on such a fold K1 is held to its plain version on the 256
+        tile rows either side of the split. A fold that trips a bound
+        fails the phase
      b. LM mode at full width: `--arch qwen1.5-0.5b --batch 4 --prefill
         512 --decode 64` from seed-0 weights: prefill ms (the driver's
         first call, and warm), decode ms/token (median and p90 after the
@@ -200,6 +202,35 @@ Phases, in order:
         float32 compute run forward, prefill and 8 decode steps on the
         card and on the CPU: logits within rtol 1e-4 and atol 1e-4 x
         max|logit|
+  11. runs after 10: LM serving for the MoE/MLA, SSM, hybrid and enc-dec
+     families at full width and depth, from seed-0 weights through
+     `serve.run_lm` at batch 4, prefill 512, decode 64 (the enc-dec with
+     the reference driver's prompt: zero encoder frames, tokens of 1):
+     11a deepseek-v2-lite-16b (its weights in bf16, the reference's own
+     `param_dtype` field: float32 masters and a bf16 copy would need 94
+     GB), 11b mamba2-780m, 11c zamba2-1.2b, 11d seamless-m4t-large-v2;
+     each as 10b (prefill ms first and warm, decode ms a token, tokens/s,
+     peak memory, a warm step's device-busy ms and top kernels) and the
+     step's byte bound (every weight, all 64 experts' for the MoE, and
+     the caches' live part at 3.35 TB/s); each model freed before the
+     next.
+     e. per arch, 64 teacher-forced decode steps at batch 1 against
+        `forward` (the SSM and hybrid forward at ssm_chunk 64, the MoE at
+        moe_group 1 after its seed-0 run: its reference dispatch mixes the
+        tokens of a group): logits measured on seed-0 weights and with the
+        attention projections at their contraction fan-in
+        (`fan_in_attention`: self-, cross-, MLA and the hybrid's shared
+        block), the enc-dec's gated there (relative RMS <= 0.05,
+        agreement >= 0.9); the MoE's share of (token, layer) routed
+        differently; then every arch gated layer by layer (`LayerTape`:
+        each decode layer on the forward's input to it within relative
+        RMS 0.05), since through 26-48 layers an MoE expert swap or an
+        SSM state rounding grows past the logit gates (`family_self`)
+     f. reduced arctic-480b, deepseek, mamba2, zamba2 and seamless under
+        float32 compute: forward, prefill and 8 decode steps on the card
+        against the CPU from the same weights, rtol 1e-4 and atol 1e-4 x
+        max|logit| (a decode that reads back bf16 state, SSM, hybrid and
+        enc-dec: two bf16 ulps of max|logit|, relative RMS 4e-3)
   5. one {"kernels": [...]} line (K1's and K2's rows also carry phase 8's
      shard_launches, shard_ms and shard_bound_ms, and phase 9d's
      train_launches; K1's also phase 10a's driver_launches), the card
@@ -211,7 +242,7 @@ phase fails. `--json PATH` also writes every measurement to PATH.
 last line; `--sessions-only` runs phases 1 and 4g; `--lod-only` runs
 phases 1 and 7; `--shards-only` runs phases 1 and 8 (rendering 8d's
 plain frames itself); `--train-only` runs phases 1 and 9; `--serve-only`
-runs phases 1 and 10; `--offpath-only` runs phase 1, the 1024² setup,
+runs phases 1 and 10; `--families-only` phases 1 and 11; `--offpath-only` runs phase 1, the 1024² setup,
 phase 6a and K3 on the 1024² frame's lists, and prints their times on
 the line before the card line and the contract's last line. A copy of this script placed
 at the root of another commit's tree (`git archive`) times that commit's
@@ -293,7 +324,12 @@ from repro_torch.serving import (HD_SCENE_KW, AdmissionRejected,  # noqa: E402
 from repro_torch.serving.sharding import tile_mesh  # noqa: E402
 from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import blocks as blocks_mod  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.pspec import leaves  # noqa: E402
 from repro_torch.serving.workloads import (arrival_camera,  # noqa: E402
                                            hd1080_plan, trajectory_cameras)
 
@@ -2669,54 +2705,101 @@ def phase_train(dev=torch.device("cuda"), grads_cfg: dict = TRAIN_GRADS,
 
 # The demo scenes probe to k_max 8192 at 1024²; a batch of 4 folds 16,384
 # tiles, and 16384 x 8192 x 16 mini-tiles reach K1's int32 index (2**31),
-# so the driver runs at max_batch 2 (`run_render_driver` would halve it
-# again should a fold still reach it).
+# so K1's wrapper launches such a fold in two row ranges
+# (`prtu.entry_row_ranges`).
 DRIVER_RENDER = ["--mode", "render", "--device", "cuda", "--frames", "8",
                  "--res", "1024", "--gaussians", "131072", "--max-batch",
-                 "2", "--pallas"]
+                 "4", "--pallas"]
 DRIVER_LM = ["--mode", "lm", "--device", "cuda", "--arch", "qwen1.5-0.5b",
              "--batch", "4", "--prefill", "512", "--decode", "64"]
 LM_SELF_TOKENS = 64              # 10c: teacher-forced positions, batch 1
 LM_SELF_SEED = 10
 CARD_CPU_PROMPT, CARD_CPU_DECODE = 20, 8
+SPLIT_ROWS = 256                 # 10a: K1 rows held either side of a split
 
 
-def run_render_driver(argv: list) -> tuple:
-    """`serve.run_render` on `argv`; should a folded batch exceed K1's
-    int32 index, rerun with the next smaller max_batch. Returns (the
-    driver's output, the max_batch it ran at, launches during its run)."""
-    args = serve_driver.parser().parse_args(argv)
-    while True:
-        reset_launches()
-        try:
-            out = serve_driver.run_render(
-                args, log=lambda m: log(f"[serve 10a] {m}"))
-            return out, args.max_batch, launches_now()
-        except ValueError as e:
-            if "int32 index" not in str(e) or args.max_batch == 1:
-                raise
-            log(f"[serve 10a] max_batch {args.max_batch} folds too many "
-                f"tile-list entries for K1's int32 index ({e}); rerunning "
-                f"at max_batch {args.max_batch // 2}")
-            args.max_batch //= 2
-            torch.cuda.empty_cache()
+def driver_dispatches(engine, results) -> dict:
+    """The driver's dispatches, one per (scene, resolution, batch wall):
+    {key: dict(passes, bucket, ranges, requests)}, `ranges` the K1 row
+    ranges of one pass of the dispatch's fold of `bucket` frames."""
+    out = {}
+    for r in results:
+        req = r.frame.request
+        cam = req.camera
+        key = (req.scene, cam.height, cam.width, r.render_s)
+        if key not in out:
+            k = engine.plan_for(req.scene, cam.height, cam.width).stream.k_max
+            tiles = (cam.height // 16) * (cam.width // 16)
+            out[key] = dict(passes=r.frame.passes_run,
+                            bucket=r.frame.bucket_size,
+                            ranges=prtu.entry_row_ranges(
+                                r.frame.bucket_size * tiles, k),
+                            requests=[])
+        out[key]["requests"].append(req)
+    return out
+
+
+def driver_fold_split(engine, dispatch: dict) -> dict:
+    """K1 on pass 0 of a dispatch whose fold K1's wrapper splits: launched
+    once a row range, and equal to its plain version on the SPLIT_ROWS tile
+    rows either side of each split (the plain version over the whole fold's
+    mask would need tens of GB)."""
+    reqs = dispatch["requests"]
+    name, cam0 = reqs[0].scene, reqs[0].camera
+    plan = engine.plan_for(name, cam0.height, cam0.width)
+    cams = [r.camera.to(engine.device) for r in reqs]
+    cams += [cams[-1]] * (dispatch["bucket"] - len(cams))
+    pss = [plan.preprocess(engine.scene(name), c) for c in cams]
+    tss = [plan.stage1_compact(ps)[0] for ps in pss]
+    fold = fold_frames([ps.proj for ps in pss], pss[0].grid)
+    kw = prec_kw(plan.test.precision)
+    cat_ops = ops.entry_cat_operands(
+        fold.proj, pss[0].grid, fold.ids([t.lists for t in tss]),
+        fold.cat([t.valid for t in tss]), tile_origins=fold.tile_origins)
+    del pss, tss
+    before = prtu.launches
+    got = prtu.prtu_entry_cat_mask(*cat_ops, **kw)
+    torch.cuda.synchronize()
+    launched = prtu.launches - before
+    ranges = prtu.entry_row_ranges(*cat_ops[5].shape)
+    check(launched == len(ranges) == len(dispatch["ranges"]) > 1,
+          f"serve 10a: K1 launched {launched} times on a fold of "
+          f"{len(ranges)} row ranges")
+    flips = held = 0
+    for _, t1 in ranges[:-1]:
+        rows = slice(t1 - SPLIT_ROWS, t1 + SPLIT_ROWS)
+        want = prtu.prtu_entry_cat_mask_plain(
+            cat_ops[0], cat_ops[1], *(x[rows] for x in cat_ops[2:]), **kw)
+        flips += int((got[rows] != want).sum())
+        held += want.numel()
+    check(flips == 0, f"serve 10a: K1 on the rows either side of the split: "
+          f"{flips} flips")
+    log(f"[serve 10a] K1 on a fold of {len(cams)} frames "
+        f"({cat_ops[5].shape[0]} tiles x {cat_ops[5].shape[1]} entries): "
+        f"{launched} launches over row ranges {ranges}; 0 flips against its "
+        f"plain version on the {2 * SPLIT_ROWS} rows around each split "
+        f"({held} mini-tile tests)")
+    return dict(tiles=cat_ops[5].shape[0], k=cat_ops[5].shape[1],
+                ranges=ranges, launches=launched, flips=flips,
+                tests_held=held)
 
 
 def phase_driver_render(argv: list = DRIVER_RENDER) -> dict:
     """10a: the render driver on the card, held to the plain render."""
-    out, max_batch, launches = run_render_driver(argv)
+    args = serve_driver.parser().parse_args(argv)
+    reset_launches()
+    out = serve_driver.run_render(args, log=lambda m: log(f"[serve 10a] {m}"))
+    launches = launches_now()
     engine, results = out["engine"], out["results"]
-    # One dispatch per (scene, resolution, batch wall): each ran K1 once a
-    # pass and the unfused blend, so no K2.
-    dispatches = {}
-    for r in results:
-        cam = r.frame.request.camera
-        dispatches[(r.frame.request.scene, cam.height, cam.width,
-                    r.render_s)] = r.frame.passes_run
-    passes = sum(dispatches.values())
-    check(launches["prtu_entry_cat_mask"] == passes,
+    # Each dispatch ran K1 once a row range of each pass and the unfused
+    # blend, so no K2.
+    dispatches = driver_dispatches(engine, results)
+    passes = sum(d["passes"] for d in dispatches.values())
+    expected = sum(d["passes"] * len(d["ranges"])
+                   for d in dispatches.values())
+    check(launches["prtu_entry_cat_mask"] == expected,
           f"serve 10a: K1 launched {launches['prtu_entry_cat_mask']} times "
-          f"for {passes} dispatch passes")
+          f"for {passes} dispatch passes of {expected} row ranges")
     check(passes > 0, "serve 10a: K1 never launched")
     check(launches["blend_tiles_fused"] == 0,
           "serve 10a: K2 launched on the driver's unfused path")
@@ -2730,13 +2813,22 @@ def phase_driver_render(argv: list = DRIVER_RENDER) -> dict:
     log(f"[serve 10a] {engine.telemetry.format_snapshot()}")
     k_max = {n: engine._scenes[n].k_max for n in engine.scene_names()}
     log(f"[serve 10a] {len(results)} frames in {len(dispatches)} dispatches "
-        f"(max_batch {max_batch}), scene k_max {k_max}; launches "
-        f"{launches} for {passes} passes; max |Δ| against the plain render "
-        f"{max(errs):.2e} (bound 2e-4); waves ms "
+        f"(max_batch {args.max_batch}; buckets "
+        f"{[d['bucket'] for d in dispatches.values()]}, K1 row ranges a "
+        f"pass {[len(d['ranges']) for d in dispatches.values()]}), scene "
+        f"k_max {k_max}; launches {launches} for {passes} passes; max |Δ| "
+        f"against the plain render {max(errs):.2e} (bound 2e-4); waves ms "
         f"{[round(w['ms'], 1) for w in out['waves']]}")
+    split = [d for d in dispatches.values() if len(d["ranges"]) > 1]
+    check(bool(split), "serve 10a: no dispatch folded past K1's int32 "
+          "index")
+    fold = driver_fold_split(engine, split[0])
     return dict(frames=len(results), dispatches=len(dispatches),
-                passes=passes, launches=launches, max_batch=max_batch,
+                passes=passes, launches=launches, max_batch=args.max_batch,
+                buckets=[d["bucket"] for d in dispatches.values()],
+                row_ranges=[len(d["ranges"]) for d in dispatches.values()],
                 k_max=k_max, max_abs_err=max(errs), waves=out["waves"],
+                fold_split=fold,
                 telemetry={k: v for k, v in snapshot.items()
                            if isinstance(v, (int, float))})
 
@@ -2759,30 +2851,61 @@ def logits_agree(got, want, label: str, rms_max=0.05, agree_min=0.9):
     return dict(rel_rms=rms, agreement=agree)
 
 
-def decode_tokens(model, tokens) -> tuple:
-    """Teacher-forced decode of `tokens` (B, S) from fresh caches of
-    length S: (logits (B, S, V), caches)."""
+def decode_tokens(model, tokens, caches=None) -> tuple:
+    """Teacher-forced decode of `tokens` (B, S) from `caches`, by default
+    fresh caches of length S: (logits (B, S, V), caches)."""
     b, s = tokens.shape
-    caches, outs = model.init_caches(b, s), []
+    caches = model.init_caches(b, s) if caches is None else caches
+    outs = []
     for i in range(s):
         lg, caches = model.decode_step(caches, tokens[:, i:i + 1])
         outs.append(lg)
     return torch.stack(outs, 1), caches
 
 
-def phase_driver_lm(argv: list = DRIVER_LM) -> dict:
-    """10b: the LM driver at full width."""
-    args = serve_driver.parser().parse_args(argv)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    model, init_ms = sync_wall_ms(lambda: serve_driver.lm_model(args))
+def decode_step_bytes(model, caches, batch: int) -> int:
+    """Bytes one decode step at the caches' `pos` must move: every weight read
+    once (an untied input table only for the batch's rows; the MoE's
+    dispatch runs every expert, so every expert's weights), the live
+    positions 0..pos of each attention or latent cache read, the enc-dec's
+    encoder output read whole, and each SSM state and conv tail read and
+    written."""
+    p = model.compute_params()
+    pos = caches["pos"]
+    n = batch * model.cfg.d_model * p["embed"]["tok"].element_size()
+    for path, t in leaves(p):
+        if path == "embed.tok" and not model.cfg.tie_embeddings:
+            continue
+        n += nbytes(t)
+    for key, val in caches.items():
+        if key == "pos":
+            continue
+        tensors = (val["kv"] + val.get("scale", ())
+                   if isinstance(val, dict) else
+                   val if isinstance(val, tuple) else (val,))
+        for t in tensors:
+            if key in ("ssm", "groups", "tail"):
+                n += 2 * nbytes(t)
+            elif key == "enc_out":
+                n += nbytes(t)
+            else:                          # (L, B, S, ...): live positions
+                n += nbytes(t) * (pos + 1) // t.shape[2]
+    return n
+
+
+def lm_serve(args, model, tag: str) -> dict:
+    """The LM driver's run (`serve.run_lm`) on `model`, then its warm
+    prefill, five warm decode steps and one profiled step: prefill ms
+    (first and warm), decode ms a token (median and p90 after the first
+    step), tokens/s, peak memory, the warm step's device-busy ms and top
+    kernels against its wall, and the step's byte bound."""
     cfg = model.cfg
     param_bytes = nbytes(*model.state_dict().values())
     out = serve_driver.run_lm(args, model,
-                              log=lambda m: log(f"[serve 10b] {m}"))
+                              log=lambda m: log(f"[{tag}] {m}"))
     finite = bool(torch.isfinite(out["prefill_logits"].float()).all()) and \
         all(bool(torch.isfinite(x.float()).all()) for x in out["step_logits"])
-    check(finite, "serve 10b: non-finite logits")
+    check(finite, f"{tag}: non-finite logits")
     steps = sorted(out["step_ms"][1:])
     median = steps[len(steps) // 2]
     p90 = steps[min(len(steps) - 1, int(0.9 * len(steps)))]
@@ -2796,10 +2919,11 @@ def phase_driver_lm(argv: list = DRIVER_LM) -> dict:
         (_, caches), ms = sync_wall_ms(lambda: model.decode_step(caches, tok))
         walls.append(ms)
     step_wall = sorted(walls)[2]
+    step_bytes = decode_step_bytes(model, caches, args.batch)
     busy, top = device_profile(lambda: model.decode_step(caches, tok))
     peak = torch.cuda.max_memory_allocated()
     res = dict(arch=cfg.name, batch=args.batch, prefill=args.prefill,
-               decode=args.decode, init_ms=init_ms, param_bytes=param_bytes,
+               decode=args.decode, param_bytes=param_bytes,
                param_count=cfg.param_count(),
                params=sum(p.numel() for p in model.parameters()),
                prefill_ms=out["prefill_ms"], warm_prefill_ms=warm_prefill,
@@ -2810,20 +2934,34 @@ def phase_driver_lm(argv: list = DRIVER_LM) -> dict:
                / (warm_prefill / 1e3),
                step_wall_ms=step_wall, step_busy_ms=busy,
                step_busy_share=busy / step_wall, top_kernels=top[:5],
+               step_bytes=step_bytes,
+               step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
                peak_bytes=peak)
-    log(f"[serve 10b] {cfg.name} full width ({res['params']} parameters, "
-        f"{param_bytes / 1e9:.3f} GB fp32; param_count() "
-        f"{res['param_count']}): weights drawn in {init_ms:.0f} ms; "
-        f"prefill {args.batch}x{args.prefill} {out['prefill_ms']:.1f} ms "
-        f"first, {warm_prefill:.1f} ms warm "
-        f"({res['prefill_tokens_per_s']:.0f} tokens/s); decode "
-        f"{median:.2f} ms/token median, {p90:.2f} p90 (first step "
-        f"{res['first_step_ms']:.1f}), {res['tokens_per_s']:.0f} tokens/s "
-        f"at batch {args.batch}; one warm step {step_wall:.2f} ms wall, "
-        f"{busy:.2f} ms device-busy ({100 * busy / step_wall:.1f}%); top "
+    log(f"[{tag}] {cfg.name} full width ({res['params']} parameters, "
+        f"{param_bytes / 1e9:.3f} GB of {cfg.param_dtype} weights; "
+        f"param_count() {res['param_count']}): prefill "
+        f"{args.batch}x{args.prefill} {out['prefill_ms']:.1f} ms first, "
+        f"{warm_prefill:.1f} ms warm ({res['prefill_tokens_per_s']:.0f} "
+        f"tokens/s); decode {median:.2f} ms/token median, {p90:.2f} p90 "
+        f"(first step {res['first_step_ms']:.1f}), "
+        f"{res['tokens_per_s']:.0f} tokens/s at batch {args.batch}; one "
+        f"warm step {step_wall:.2f} ms wall, {busy:.2f} ms device-busy "
+        f"({100 * busy / step_wall:.1f}%), byte bound "
+        f"{res['step_bound_ms']:.3f} ms ({step_bytes / 1e9:.3f} GB); top "
         f"kernels {[(k, round(v, 3)) for k, v in top[:5]]}; peak "
         f"{peak / 1e9:.2f} GB; logits finite")
-    return dict(res, model=model)
+    return res
+
+
+def phase_driver_lm(argv: list = DRIVER_LM) -> dict:
+    """10b: the LM driver at full width."""
+    args = serve_driver.parser().parse_args(argv)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = sync_wall_ms(lambda: serve_driver.lm_model(args))
+    res = lm_serve(args, model, "serve 10b")
+    log(f"[serve 10b] weights drawn in {init_ms:.0f} ms")
+    return dict(res, init_ms=init_ms, model=model)
 
 
 def self_consistency(model, toks, label: str, gate: bool) -> dict:
@@ -2858,18 +2996,31 @@ def self_consistency(model, toks, label: str, gate: bool) -> dict:
                 decode_int8_ms=dec8_ms)
 
 
-def fan_in_attention(model) -> None:
-    """Rescale the attention projections in place to the contraction
-    dimension's fan-in: wq, wk, wv (L, d, heads, hd) by d**-0.5 and wo
-    (L, heads, hd, d) by (heads * hd)**-0.5, where the reference's init
-    (and so the driver's) uses the second-to-last dimension, heads and
-    hd."""
-    a = model.layers.attn
-    _, d, hp, hd = a.wq.shape
+ATTN_IN_PROJ = ("wq", "wk", "wv", "w_q", "w_uk", "w_uv")
+
+
+def fan_in_attention(model) -> int:
+    """Rescale every attention projection in place to the contraction
+    dimension's fan-in, where the reference's init (and so the driver's)
+    takes the second-to-last dimension: the input projections (..., in,
+    heads, hd) of self- and cross-attention (wq, wk, wv) and of MLA (w_q,
+    and w_uk, w_uv from the latent) by (heads / in) ** 0.5, and every
+    attention's output projection wo (..., heads, hd, d) by heads ** -0.5.
+    Returns how many tensors it rescaled."""
+    n = 0
     with torch.no_grad():
-        for w in (a.wq, a.wk, a.wv):
-            w.mul_((w.shape[-2] / d) ** 0.5)
-        a.wo.mul_((hd / (hp * hd)) ** 0.5)
+        for name, w in model.named_parameters():
+            *parents, leaf = name.split(".")
+            if not parents or parents[-1] not in ("attn", "xattn"):
+                continue
+            if leaf in ATTN_IN_PROJ:
+                w.mul_((w.shape[-2] / w.shape[-3]) ** 0.5)
+            elif leaf == "wo":
+                w.mul_(w.shape[-3] ** -0.5)
+            else:
+                continue
+            n += 1
+    return n
 
 
 def phase_lm_self(model) -> dict:
@@ -2942,6 +3093,349 @@ def phase_driver() -> dict:
     card = timed_phase("serve 10d", phase_lm_card_vs_cpu)
     return dict(render=render_, lm=lm, self_consistency=self_,
                 card_vs_cpu=card)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: LM serving for the MoE/MLA, SSM, hybrid and enc-dec families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("deepseek-v2-lite-16b", "mamba2-780m", "zamba2-1.2b",
+                "seamless-m4t-large-v2")
+FAMILY_TRAFFIC = ["--mode", "lm", "--device", "cuda", "--batch", "4",
+                  "--prefill", "512", "--decode", "64"]
+# deepseek's float32 master weights and their bf16 compute copy (94 GB) do
+# not fit one card: the reference's own field param_dtype="bfloat16"
+# (arctic-480b's setting) holds them in bf16, 31.4 GB, with no copy.
+FAMILY_PARAM_DTYPE = {"deepseek-v2-lite-16b": "bfloat16"}
+FAMILY_SELF_SEED = 11
+CARD_CPU_FAMILIES = ("arctic-480b",) + FAMILY_ARCHS
+# 11f: a float32 decode that reads back bf16 state it wrote (an SSM state,
+# the enc-dec's encoder output) carries an f32 ulp that flips a bf16
+# rounding into later steps; such decodes are held within two bf16 ulps
+# of max|logit| and relative RMS 4e-3, as tests/test_torch_lm_families.py
+# holds them against the reference.
+BF16_STATE_FAMILIES = ("ssm", "hybrid", "encdec")
+
+
+def twin(model, **changes):
+    """`model`'s weights (shared, not copied) under its config with
+    `changes`."""
+    m = Model(dataclasses.replace(model.cfg, **changes), device="meta")
+    m.load_state_dict(model.state_dict(), assign=True)
+    return m
+
+
+def family_batch(cfg, prompt, gen, device) -> dict:
+    """The teacher-forced checks' batch: `prompt`'s tokens, and for the
+    enc-dec seeded bf16 encoder frames of the prompt's length."""
+    batch = dict(tokens=prompt.to(device))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.randn(
+            prompt.shape + (cfg.d_model,), generator=gen).bfloat16().to(
+            device)
+    return batch
+
+
+def decode_caches(model, batch, b: int, s: int) -> dict:
+    """Fresh caches of length s; the enc-dec's carry the batch's encoder
+    output (its prefill's), as a served decode after that prefill would."""
+    caches = model.init_caches(b, s)
+    if model.cfg.family == "encdec":
+        caches["enc_out"] = model.prefill(batch)[1]["enc_out"].to(
+            torch.bfloat16)
+    return caches
+
+
+class RoutingLog:
+    """Within `with`, every `moe_apply` call's top-k expert ids, sorted,
+    in call order (`models.moe.top_k` wrapped)."""
+
+    def __enter__(self):
+        self.calls, self._orig = [], moe_mod.top_k
+
+        def top_k(x, k):
+            vals, idx = self._orig(x, k)
+            self.calls.append(idx.sort(-1).values.cpu())
+            return vals, idx
+        moe_mod.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.top_k = self._orig
+
+
+def routing_flips(fwd_calls: list, dec_calls: list) -> float:
+    """The share of (token, MoE layer) whose expert set differs between a
+    forward over S tokens (one call a layer, (S, k)) and S one-token
+    decode steps (one call a layer a step, (1, k))."""
+    fwd = torch.stack(fwd_calls, 1)                       # (S, L, k)
+    dec = torch.stack(dec_calls).reshape(fwd.shape[0], len(fwd_calls), -1)
+    return float((fwd != dec).any(-1).float().mean())
+
+
+# The decoder-side blocks `forward` runs, and those `decode_step` runs, in
+# the same layer order for every family (`models.blocks`, and the enc-dec
+# decoder layer in `models.model`).
+FORWARD_BLOCKS = ((blocks_mod, "dense_block"), (blocks_mod, "dense_ffn_block"),
+                  (blocks_mod, "moe_block"), (blocks_mod, "ssm_block"),
+                  (model_mod, "decoder_block"))
+DECODE_BLOCKS = ((blocks_mod, "dense_decode_block"),
+                 (blocks_mod, "moe_decode_block"),
+                 (blocks_mod, "ssm_decode_block"),
+                 (model_mod, "decoder_decode_block"))
+
+
+class LayerTape:
+    """11e's layerwise check. Within `forward()`, each decoder layer of a
+    forward keeps its input and output; within `decode()`, each decode
+    step's layer l runs on the forward's input to layer l at that position
+    (its own cache updated as usual) and keeps what it adds. So every
+    layer's decode is compared with its forward on the same input, and a
+    rounding difference in one layer does not reach the next."""
+
+    def __init__(self):
+        self.fwd, self.dec = [], []
+
+    @staticmethod
+    def _patched(targets, wrap):
+        origs = [(mod, name, getattr(mod, name)) for mod, name in targets]
+        for mod, name, fn in origs:
+            setattr(mod, name, wrap(fn))
+        return origs
+
+    @staticmethod
+    def _restore(origs):
+        for mod, name, fn in origs:
+            setattr(mod, name, fn)
+
+    def forward(self, model, batch):
+        def wrap(fn):
+            def block(p, x, *args, **kw):
+                out = fn(p, x, *args, **kw)
+                self.fwd.append((x, out[0]))
+                return out
+            return block
+        origs = self._patched(FORWARD_BLOCKS, wrap)
+        try:
+            return model.forward(batch)
+        finally:
+            self._restore(origs)
+
+    def decode(self, model, toks, caches):
+        n = len(self.fwd)
+
+        def wrap(fn):
+            def block(p, x, *args, **kw):
+                i = len(self.dec)
+                x_in = self.fwd[i % n][0][:, i // n:i // n + 1]
+                out = fn(p, x_in, *args, **kw)
+                self.dec.append(out[0] - x_in)
+                return out
+            return block
+        origs = self._patched(DECODE_BLOCKS, wrap)
+        try:
+            return decode_tokens(model, toks, caches)
+        finally:
+            self._restore(origs)
+
+    def layer_rms(self) -> list:
+        """Per layer, the relative RMS of what decode adds against what
+        the forward adds, over every position."""
+        n, out = len(self.fwd), []
+        for layer, (x_in, x_out) in enumerate(self.fwd):
+            want = (x_out - x_in).float()
+            got = torch.cat(self.dec[layer::n], 1).float()
+            out.append(float(torch.sqrt(((got - want) ** 2).mean())
+                             / torch.sqrt((want ** 2).mean())))
+        return out
+
+
+def family_self(model, tag: str) -> dict:
+    """11e: 64 teacher-forced decode steps at batch 1 against `forward`.
+    The SSM and hybrid forward run at ssm_chunk 64, as test_archs.py
+    replaces the chunk (the SSD asserts a chunk multiple); the MoE runs at
+    moe_group 1 after its seed-0 run: its reference dispatch counts
+    capacity slots per top-k rank (a cumsum over the group for each rank),
+    so two tokens routed to one expert at different ranks share a slot and
+    the expert runs on their sum, and a decode step (a group of one)
+    equals a forward only where the forward groups each token alone.
+
+    Logits, measured on the seed-0 weights, then on the same weights with
+    every attention projection at its contraction dimension's fan-in
+    (`fan_in_attention`); the enc-dec's are gated there at the reference's
+    gates (relative RMS <= 0.05, agreement >= 0.9). Through 26-48 layers
+    the MoE (a rounding swaps one of 64 experts where two lie within it;
+    the share of (token, layer) routed differently is printed) and the
+    SSM and hybrid (the reference's init amplifies a bf16 state rounding
+    ~2x a layer, in the reference as in the port) part past those gates,
+    so their logits are measured only. Every family is then gated layer
+    by layer (`LayerTape`): each decode layer, on the forward's input to
+    it, adds what the forward's adds within relative RMS 0.05."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cpu").manual_seed(FAMILY_SELF_SEED)
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_SELF_TOKENS),
+                         generator=gen).to(model.device)
+    batch = family_batch(cfg, toks.cpu(), gen, model.device)
+    fwd = {}
+    if cfg.family in ("ssm", "hybrid") and LM_SELF_TOKENS % cfg.ssm_chunk:
+        fwd["ssm_chunk"] = LM_SELF_TOKENS
+    chunk = " at ssm_chunk 64" if fwd else ""
+
+    def twins(**changes):
+        return (twin(model, **fwd, **changes) if fwd or changes else model,
+                twin(model, **changes) if changes else model)
+
+    def logits(label, gate, **changes):
+        m_fwd, m_dec = twins(**changes)
+        with RoutingLog() as fwd_route:
+            (full, _), fwd_ms = sync_wall_ms(lambda: m_fwd.forward(batch))
+        caches = decode_caches(m_dec, batch, 1, LM_SELF_TOKENS)
+        with RoutingLog() as dec_route:
+            (dec, _), dec_ms = sync_wall_ms(
+                lambda: decode_tokens(m_dec, toks, caches))
+        check(bool(torch.isfinite(dec.float()).all())
+              and bool(torch.isfinite(full.float()).all()),
+              f"{tag}: non-finite logits")
+        limits = (0.05, 0.9) if gate else (math.inf, 0.0)
+        res = logits_agree(dec, full, f"{tag} {label}: decode vs forward",
+                           *limits)
+        flips = (routing_flips(fwd_route.calls, dec_route.calls)
+                 if fwd_route.calls else None)
+        log(f"[{tag}] {label}{'' if gate else ' (measured, not gated)'}: "
+            f"{LM_SELF_TOKENS} teacher-forced steps vs forward{chunk}: "
+            f"relative RMS {res['rel_rms']:.4f}, agreement "
+            f"{res['agreement']:.3f}{' (gates 0.05, 0.9)' if gate else ''}"
+            f"{'' if flips is None else f'; routed differently {flips:.4f}'}"
+            f"; forward {fwd_ms:.1f} ms, decode {dec_ms:.0f} ms")
+        return dict(res, gated=gate, routing_flips=flips, forward_ms=fwd_ms,
+                    decode_ms=dec_ms)
+
+    moe = dict(moe_group=1) if cfg.family == "moe" else {}
+    out = dict(seed0=logits("seed-0 weights", False))
+    label = "seed-0 weights"
+    if cfg.family != "ssm":
+        out["rescaled"] = fan_in_attention(model)
+        label = (f"fan-in attention ({out['rescaled']} projections)"
+                 f"{', moe_group 1' if moe else ''}")
+        out["fan_in"] = logits(label, cfg.family == "encdec", **moe)
+    m_fwd, m_dec = twins(**moe)
+    tape = LayerTape()
+    tape.forward(m_fwd, batch)
+    tape.decode(m_dec, toks, decode_caches(m_dec, batch, 1, LM_SELF_TOKENS))
+    rms = tape.layer_rms()
+    worst = max(range(len(rms)), key=rms.__getitem__)
+    check(rms[worst] <= 0.05, f"{tag} layerwise: layer {worst} relative "
+          f"RMS {rms[worst]:.4f} (<= 0.05)")
+    out["layerwise"] = dict(layers=len(rms), max_rel_rms=rms[worst],
+                            worst_layer=worst,
+                            median_rel_rms=sorted(rms)[len(rms) // 2])
+    log(f"[{tag}] layerwise, {label}{chunk}: {len(rms)} decoder layers, "
+        f"each decode layer on the forward's input vs the forward's layer "
+        f"over {LM_SELF_TOKENS} positions: relative RMS median "
+        f"{out['layerwise']['median_rel_rms']:.4f}, max {rms[worst]:.4f} "
+        f"(layer {worst}; gate 0.05)")
+    return out
+
+
+def phase_family(name: str, tag: str) -> dict:
+    """11a-11d for one arch at full width and depth from seed-0 weights
+    through `serve.run_lm` (batch 4, prefill 512, decode 64), then its
+    11e."""
+    args = serve_driver.parser().parse_args(FAMILY_TRAFFIC + ["--arch",
+                                                              name])
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(name)
+    if name in FAMILY_PARAM_DTYPE:
+        cfg = dataclasses.replace(cfg, param_dtype=FAMILY_PARAM_DTYPE[name])
+    model, init_ms = sync_wall_ms(lambda: Model(
+        cfg, device=dev, seed=0, mesh=make_local_mesh(dev)))
+    res = lm_serve(args, model, tag)
+    log(f"[{tag}] weights drawn in {init_ms:.0f} ms ({cfg.param_dtype})")
+    res.update(init_ms=init_ms, param_dtype=cfg.param_dtype)
+    res["self"] = timed_phase(f"{tag} 11e", family_self, model,
+                              f"families 11e {name}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def card_vs_cpu_family(name: str, dev) -> dict:
+    """11f: reduced `name` under float32 compute (chunks 8): forward,
+    prefill and 8 decode steps of the same weights on `dev` and on the
+    CPU. Returns the largest |Δ| over max|logit| and the relative RMS of
+    each; forward and prefill are checked against rtol 1e-4 and atol 1e-4
+    x max|logit| (as 10d), the decode too, or within two bf16 ulps for a
+    family in BF16_STATE_FAMILIES."""
+    cfg = dataclasses.replace(reduced(get_arch(name)), dtype="float32",
+                              attn_chunk=8, ssm_chunk=8)
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = Model(cfg, device="meta")
+    card.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()},
+                         assign=True)
+    gen = torch.Generator(device="cpu").manual_seed(LM_SELF_SEED)
+    s = 16 if cfg.family in ("ssm", "hybrid") else CARD_CPU_PROMPT
+    prompt = torch.randint(0, cfg.vocab_size, (2, s), generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, CARD_CPU_DECODE),
+                         generator=gen)
+    enc = torch.randn((2, 12, cfg.d_model), generator=gen).bfloat16()
+
+    def batch(d):
+        out = dict(tokens=prompt.to(d))
+        if cfg.family == "encdec":
+            out["enc_embeds"] = enc.to(d)
+        return out
+
+    def decode(m, d):
+        caches = decode_caches(m, batch(d), 2, CARD_CPU_DECODE)
+        return decode_tokens(m, toks.to(d), caches)[0]
+
+    out = {}
+    for label, fn in (("forward", lambda m, d: m.forward(batch(d))[0]),
+                      ("prefill", lambda m, d: m.prefill(batch(d))[0]),
+                      ("decode", decode)):
+        want, got = fn(cpu, "cpu"), fn(card, dev).cpu()
+        scale = float(want.abs().max())
+        err = (got - want).abs()
+        rms = float(torch.sqrt((err ** 2).mean())
+                    / torch.sqrt((want ** 2).mean()))
+        within_1e4 = bool((err <= 1e-4 * scale + 1e-4 * want.abs()).all())
+        if label == "decode" and cfg.family in BF16_STATE_FAMILIES:
+            check(float(err.max()) <= 2 ** -6 * scale and rms <= 4e-3,
+                  f"card vs CPU {name} {label}: max |Δ| {float(err.max())} "
+                  f"(max|logit| {scale}), relative RMS {rms}")
+        else:
+            check(within_1e4, f"card vs CPU {name} {label}: max |Δ| "
+                  f"{float(err.max())} (max|logit| {scale})")
+        out[label] = dict(max_rel=float(err.max()) / scale, rel_rms=rms,
+                          within_1e4=within_1e4)
+    return out
+
+
+def phase_families_card_vs_cpu() -> dict:
+    """11f for reduced arctic-480b and the four archs of 11a-11d."""
+    out = {}
+    for name in CARD_CPU_FAMILIES:
+        out[name] = res = card_vs_cpu_family(name, torch.device("cuda"))
+        log(f"[families 11f] reduced {name}, float32: max |Δ| / max|logit| "
+            f"card vs CPU forward {res['forward']['max_rel']:.2e}, prefill "
+            f"{res['prefill']['max_rel']:.2e}, 8 decode steps "
+            f"{res['decode']['max_rel']:.2e} (relative RMS "
+            f"{res['decode']['rel_rms']:.2e}; within rtol/atol 1e-4: "
+            f"{res['decode']['within_1e4']})")
+    return out
+
+
+def phase_families() -> dict:
+    """Phase 11: 11a-11d (with each arch's 11e) and 11f."""
+    out = {}
+    for tag, name in zip(("11a", "11b", "11c", "11d"), FAMILY_ARCHS):
+        out[name] = timed_phase(f"families {tag}", phase_family, name,
+                                f"families {tag}")
+    out["card_vs_cpu"] = timed_phase("families 11f",
+                                     phase_families_card_vs_cpu)
+    return out
 
 
 def write_json(path, summary: dict) -> None:
@@ -3042,6 +3536,15 @@ def serve_only(summary: dict, json_path) -> int:
     return 0
 
 
+def families_only(summary: dict, json_path) -> int:
+    """Phase 11 alone. Prints the card line and the contract's last line."""
+    summary["families"] = timed_phase("families", phase_families)
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
 def ok_line() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3076,6 +3579,10 @@ def main() -> int:
                         help="run only the build and phase 10 (the serving "
                         "driver: render mode through K1, the full-width "
                         "qwen1.5-0.5b LM)")
+    parser.add_argument("--families-only", action="store_true",
+                        help="run only the build and phase 11 (LM serving "
+                        "for the MoE/MLA, SSM, hybrid and enc-dec families "
+                        "at full width)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3104,6 +3611,8 @@ def main() -> int:
         return train_only(summary, args.json)
     if args.serve_only:
         return serve_only(summary, args.json)
+    if args.families_only:
+        return families_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -3166,6 +3675,8 @@ def main() -> int:
     summary["train"] = timed_phase("train", phase_train)
     torch.cuda.empty_cache()
     summary["driver"] = timed_phase("serve", phase_driver)
+    torch.cuda.empty_cache()
+    summary["families"] = timed_phase("families", phase_families)
     shard_rows = {"prtu_entry_cat_mask": summary["shards"]["kernels"]["k1"],
                   "blend_tiles_fused": summary["shards"]["kernels"]["k2"]}
 

@@ -20,8 +20,9 @@ Layout mirrors the JAX reference package module for module:
                tile sharding), telemetry, the deadline scheduler and the
                1080p workload
     configs/   the architecture registry (all ten of the reference's)
-    models/    the LM's dense family: forward, prefill and decode with
-               bf16 or int8 KV caches (`models.Model`)
+    models/    the LM, every family of the registry (dense, MoE with MLA,
+               SSM, hybrid, enc-dec): forward, prefill and decode with
+               in-place caches (`models.Model`)
     launch/    the serving CLI (`python -m repro_torch.launch.serve`,
                render and LM modes) and the one-device mesh
     convert    numpy -> port types (and a TrainState and LM params back),

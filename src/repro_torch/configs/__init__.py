@@ -1,8 +1,7 @@
 """Architecture registry: one module per assigned architecture.
 
 The port's own copy of the reference's registry (`repro/configs/`): every
-architecture is carried, including the families whose models the port
-does not run yet (`models.model.Model` refuses them by name)."""
+architecture, each of which `models.model.Model` runs."""
 from repro_torch.configs.base import (ModelConfig, ShapeConfig, SHAPES,
                                       shape_applicable)
 

@@ -8,7 +8,8 @@ and returns the port's type with its tensors on `device`.
 For the LM, `lm_params_from_numpy` takes the reference's nested parameter
 tree (numpy arrays, key for key) and returns a `state_dict` for
 `models.Model.load_state_dict`; `lm_params_to_numpy` goes the other way;
-`lm_caches_from_numpy` carries decode caches (bf16, or int8 with scales).
+`lm_caches_from_numpy` carries any family's decode caches (KV, int8 KV
+with scales, MLA latents, SSM states, enc-dec outputs).
 bfloat16 arrays (numpy's `ml_dtypes` bfloat16) cross bit for bit.
 """
 from __future__ import annotations
@@ -112,11 +113,13 @@ def lm_params_to_numpy(model) -> dict:
 
 
 def lm_caches_from_numpy(caches: Mapping, device="cpu") -> dict:
-    """The reference's dense decode caches (`Model.init_caches` /
-    `decode_step`'s) -> the port's: the same nesting, K/V and scales as
-    tensors, `pos` as an int."""
-    kv = caches["kv"]
-    out = dict(kv=tuple(_t(x, device) for x in kv["kv"]))
-    if "scale" in kv:
-        out["scale"] = tuple(_t(x, device) for x in kv["scale"])
-    return dict(kv=out, pos=int(np.asarray(caches["pos"])))
+    """The reference's decode caches (`Model.init_caches` / `prefill` /
+    `decode_step`'s, any family) -> the port's: the same nesting (dicts,
+    and tuples for the pairs), arrays as tensors, `pos` as an int."""
+    def conv(k, x):
+        if isinstance(x, Mapping):
+            return {kk: conv(kk, v) for kk, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return tuple(conv(None, v) for v in x)
+        return int(np.asarray(x)) if k == "pos" else _t(x, device)
+    return conv(None, caches)

@@ -34,6 +34,9 @@ MINITILES = 16          # the kernel's mini-tiles per tile (4x4 of 4x4 px)
 DENSE_SIDE = 8          # region side (mini-tiles) of a csrc/prtu_dense.cu block
 DENSE_COLS = 512        # Gaussian columns of a csrc/prtu_dense.cu block
 
+# One K1 launch indexes at most this many mask bytes (its int32 index).
+ENTRY_INDEX_LIMIT = 2 ** 31
+
 launches = 0            # K1 launches since the last reset to 0
 dense_launches = 0      # K4 launches since the last reset to 0
 
@@ -55,11 +58,24 @@ def prtu_entry_cat_mask_plain(p_top_local, p_bot_local, tile_origins, mu,
 
 def check_entry_index(t: int, k: int) -> None:
     """The entry kernel indexes entries, their conic rows (3·e + 2) and
-    their mask bytes in int32: raise unless T·K·Mt < 2**31. A batch folded
-    into the tile axis (B·T rows) is held to the same bound."""
-    if t * k * MINITILES >= 2 ** 31:
+    their mask bytes in int32: raise unless one launch's T·K·Mt is below
+    ENTRY_INDEX_LIMIT (2**31)."""
+    if t * k * MINITILES >= ENTRY_INDEX_LIMIT:
         raise ValueError(f"{t}x{k} entries x {MINITILES} mini-tiles exceed "
                          "the entry kernel's int32 index")
+
+
+def entry_row_ranges(t: int, k: int) -> list[tuple[int, int]]:
+    """The tile-row ranges [t0, t1) that `prtu_entry_cat_mask` launches
+    its kernel on, one launch each: in order, covering rows 0..t once, of
+    equal size but the last, each under the kernel's int32 bound
+    (`check_entry_index`). A batch folded into the tile axis (B·T rows)
+    may need several; a single row too large to launch raises."""
+    check_entry_index(1, k)
+    per_launch = max(1, (ENTRY_INDEX_LIMIT - 1) // max(k * MINITILES, 1))
+    n = max(1, -(-t // per_launch))
+    rows = -(-t // n)
+    return [(i * rows, min((i + 1) * rows, t)) for i in range(n)]
 
 
 def prtu_entry_cat_mask(p_top_local: torch.Tensor, p_bot_local: torch.Tensor,
@@ -75,7 +91,8 @@ def prtu_entry_cat_mask(p_top_local: torch.Tensor, p_bot_local: torch.Tensor,
     tile_origins: (T, 2) float32; mu (T, K, 2), conic (T, K, 3), lhs (T, K)
     float32 with lhs = -inf on invalid entries (they never pass); spiky
     (T, K) int8. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (Mt must be 16) on the current stream.
+    the kernel (Mt must be 16) on the current stream, once for each row
+    range of `entry_row_ranges` (one range unless T·K·16 reaches 2**31).
     """
     kw = dict(mode=mode, coord_prec=coord_prec, delta_prec=delta_prec,
               mul_prec=mul_prec, acc_prec=acc_prec, slack=slack)
@@ -96,20 +113,25 @@ def prtu_entry_cat_mask(p_top_local: torch.Tensor, p_bot_local: torch.Tensor,
     check("lhs", lhs, f32, (t, k), dev)
     check("spiky", spiky, torch.int8, (t, k), dev)
     check_aligned("mu", mu, 8)                     # read as float2
-    check_entry_index(t, k)
+    ranges = entry_row_ranges(t, k)
     codes = _codes(mode, coord_prec, delta_prec, mul_prec, acc_prec)
     out = torch.empty((t, k, MINITILES), dtype=torch.int8, device=dev)
     lib = _lib()
-    err = lib.prtu_entry_cat_mask_launch(
-        p_top_local.data_ptr(), p_bot_local.data_ptr(),
-        tile_origins.data_ptr(), mu.data_ptr(), conic.data_ptr(),
-        lhs.data_ptr(), spiky.data_ptr(), out.data_ptr(), t * k, k, *codes,
-        1.0 - slack, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"prtu_entry_cat_mask launch failed: cudaError "
-                           f"{err}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     global launches
-    launches += 1
+    for t0, t1 in ranges:
+        # Rows t0..t1 of every (T, ...) operand and of `out` are one
+        # contiguous slice: the launch sees them as its own T = t1 - t0.
+        err = lib.prtu_entry_cat_mask_launch(
+            p_top_local.data_ptr(), p_bot_local.data_ptr(),
+            tile_origins[t0:t1].data_ptr(), mu[t0:t1].data_ptr(),
+            conic[t0:t1].data_ptr(), lhs[t0:t1].data_ptr(),
+            spiky[t0:t1].data_ptr(), out[t0:t1].data_ptr(), (t1 - t0) * k,
+            k, *codes, 1.0 - slack, stream)
+        if err != 0:
+            raise RuntimeError(f"prtu_entry_cat_mask launch failed: "
+                               f"cudaError {err}")
+        launches += 1
     return out
 
 

@@ -8,9 +8,10 @@
                 FLICKER accelerator FPS. `--pallas` runs the CTU on its
                 CUDA kernel (the "cuda" test backend, K1); the blend is
                 the plain unfused one either way.
---mode lm     : prefill + greedy decode for a dense-family --arch
-                (`--reduced` for a CPU-sized config), from random weights
-                drawn from a seeded generator. As in the reference, decode
+--mode lm     : prefill + greedy decode for any registry --arch (dense,
+                MoE, SSM, hybrid, enc-dec; `--reduced` for a CPU-sized
+                config), from random weights drawn from a seeded
+                generator. As in the reference, decode
                 starts from fresh caches sized prefill + decode, so the
                 decoded tokens do not attend to the prompt: the loop times
                 decode steps, it does not continue the prompt.
@@ -140,8 +141,16 @@ def lm_model(args):
 
 
 def lm_batch(cfg, b: int, s: int, device) -> dict:
-    """The driver's prompt: token id 1 everywhere, or zero embeddings for
-    an embeddings-input (vlm/audio) config."""
+    """The driver's prompt, as the reference's: token id 1 everywhere, or
+    zero embeddings for an embeddings-input (vlm/audio) config; an enc-dec
+    config gets zero encoder embeddings of S frames and decoder tokens of
+    1 (tested first: seamless also sets `embeds_input`)."""
+    if cfg.family == "encdec":
+        return dict(enc_embeds=torch.zeros((b, s, cfg.d_model),
+                                           dtype=torch.bfloat16,
+                                           device=device),
+                    tokens=torch.ones((b, s), dtype=torch.int64,
+                                      device=device))
     if cfg.embeds_input:
         return dict(embeds=torch.zeros((b, s, cfg.d_model),
                                        dtype=torch.bfloat16, device=device))
@@ -191,8 +200,9 @@ def run_lm(args, model=None, log=print) -> dict:
 def serve_lm(args) -> int:
     try:
         model = lm_model(args)
-    except NotImplementedError as e:        # a family not ported yet
-        print(f"serve: {e}", file=sys.stderr)
+    except NotImplementedError as e:        # a mesh larger than one device
+        print(f"serve: the LM is served on a one-device mesh only: {e}",
+              file=sys.stderr)
         return 2
     run_lm(args, model)
     return 0

@@ -53,6 +53,11 @@ def sigmoid(x):
     return 1 / (1 + torch.exp(-x))
 
 
+def silu(x):
+    """x · sigmoid(x), `jax.nn.silu`'s two roundings."""
+    return x * sigmoid(x)
+
+
 def mlp_specs(cfg: ModelConfig, d_ff=None):
     d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.mlp_act == "swiglu":
@@ -72,7 +77,7 @@ def mlp_apply(p, x, cfg: ModelConfig):
     h = x @ p["wi"].to(x.dtype)
     if cfg.mlp_act == "swiglu":
         u, g = torch.chunk(h, 2, dim=-1)
-        h = u * (g * sigmoid(g))
+        h = u * silu(g)
     else:
         r = F.relu(h)
         h = r * r

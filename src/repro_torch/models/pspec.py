@@ -6,8 +6,9 @@ walks its leaves in sorted-key order (the order `jax.tree.flatten` gives
 the reference's dicts) and draws each from one explicit
 `torch.Generator`, with the reference's rules: "zeros", "ones", "small"
 (normal × 0.02) and "fanin" (normal × fan_in**-0.5, fan_in the
-second-to-last dimension). The draws are not the reference's jax random
-streams; weights are carried across packages with
+second-to-last dimension). A float32 leaf is drawn in float32; a bf16
+one (`param_dtype="bfloat16"`) in bf16, in place. The draws are not the
+reference's jax random streams; weights are carried across packages with
 `repro_torch.convert.lm_params_from_numpy`.
 
 The logical axis names ("fsdp", "model", ...) are kept on every spec for
@@ -74,8 +75,14 @@ def _init_one(p: PSpec, generator: Optional[torch.Generator], dtype=None,
     fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
     scale = 0.02 if p.init == "small" else (1.0 / max(fan_in, 1)) ** 0.5
     gdev = generator.device if generator is not None else device
-    x = torch.randn(p.shape, generator=generator, device=gdev) * scale
-    return x.to(device=device, dtype=dt)
+    if dt == torch.float32:
+        x = torch.randn(p.shape, generator=generator, device=gdev) * scale
+        return x.to(device=device)
+    # A reduced-precision leaf is drawn in its own dtype, in place: drawn
+    # in float32 first, deepseek's stacked experts (26 x 64 x 2048 x 2816)
+    # would need two 38 GB temporaries.
+    x = torch.empty(p.shape, dtype=dt, device=gdev)
+    return x.normal_(generator=generator).mul_(scale).to(device)
 
 
 def init_params(tree, generator: Optional[torch.Generator], dtype=None,

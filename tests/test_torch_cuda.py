@@ -211,7 +211,10 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("prec", ["fp32", "mixed"])
-def test_entry_cat_kernel_matches_plain(cuda, prec):
+def test_entry_cat_kernel_matches_plain(cuda, prec, monkeypatch):
+    """K1 against its plain version; then, with the int32 bound patched
+    small, the same call split into row ranges (one launch each) equal to
+    the single launch bit for bit."""
     p = {"fp32": FULL_FP32, "mixed": MIXED}[prec]
     ops = [torch.from_numpy(x) for x in cat_operands(3, t=64, k=512)]
     kw = dict(mode="smooth_focused", **prec_kw(p))
@@ -221,6 +224,14 @@ def test_entry_cat_kernel_matches_plain(cuda, prec):
     assert prtu.launches == before + 1
     flips = int((got.cpu() != want).sum())
     assert flips == 0 if prec == "fp32" else flips < 5e-4 * want.numel()
+
+    monkeypatch.setattr(prtu, "ENTRY_INDEX_LIMIT", 10 * 512 * 16)
+    ranges = prtu.entry_row_ranges(64, 512)
+    assert len(ranges) == 8
+    before = prtu.launches
+    split = prtu.prtu_entry_cat_mask(*(x.to(cuda) for x in ops), **kw)
+    assert prtu.launches == before + len(ranges)
+    assert torch.equal(split, got)
 
 
 @pytest.mark.cuda

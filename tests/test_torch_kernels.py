@@ -181,6 +181,32 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         check("x", x, torch.float32, (4, 3), meta)
 
 
+def test_entry_row_ranges_split_at_the_index_bound(monkeypatch):
+    """K1's wrapper launches once per row range of `entry_row_ranges`:
+    the ranges cover every tile row once, in order, each under the int32
+    bound (patched small here), and one range suffices below it. A fold
+    of 4 frames at 1024² with 8192 entries a tile (16384 x 8192 x 16 =
+    2**31) splits in two; only a single row past the bound raises."""
+    assert prtu.entry_row_ranges(16384, 8192) == [(0, 8192), (8192, 16384)]
+    assert prtu.entry_row_ranges(2 * 8160, 512) == [(0, 16320)]
+    assert prtu.entry_row_ranges(0, 512) == [(0, 0)]
+    with pytest.raises(ValueError, match="int32"):
+        prtu.entry_row_ranges(1, 1 << 27)
+    for limit in (16 * 64, 16 * 64 + 1, 1000, 5000):
+        monkeypatch.setattr(prtu, "ENTRY_INDEX_LIMIT", limit)
+        for t, k in ((1, 8), (7, 8), (64, 8), (37, 16), (300, 5)):
+            ranges = prtu.entry_row_ranges(t, k)
+            rows = [r for t0, t1 in ranges for r in range(t0, t1)]
+            assert rows == list(range(t)), (limit, t, k, ranges)
+            assert all(t1 > t0 for t0, t1 in ranges)
+            assert all((t1 - t0) * k * prtu.MINITILES < limit
+                       for t0, t1 in ranges), (limit, t, k, ranges)
+            if t * k * prtu.MINITILES < limit:
+                assert ranges == [(0, t)]
+        with pytest.raises(ValueError, match="int32"):
+            prtu.entry_row_ranges(4, limit)
+
+
 def scene_blend_operands(scene, camera, size=64, k_max=256):
     """The fused blend's operands for the first pass of a real frame: the
     reference's projection of `scene`, the port's Stage 1 and CTU at

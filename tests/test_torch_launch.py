@@ -14,15 +14,13 @@ against the reference:
                 --prefill 32 --decode 3`: rc 0, and the decoded tokens
                 equal greedy decoding through `Model` from the same seed;
                 llava (embeddings input) runs too
-  refusals      an unported family (zamba2-1.2b, hybrid) and `--device
-                cuda` without a CUDA device exit non-zero with a message;
+  families      `--reduced` deepseek (MoE with MLA), mamba2 (SSM), zamba2
+                (hybrid) and seamless (enc-dec, the reference's prompt):
+                rc 0, tokens equal to greedy decoding through `Model`
+  refusals      a mesh of two devices (exit 2) and `--device cuda`
+                without a CUDA device exit non-zero with a message;
                 `Model` refuses a 2-device mesh
 """
-import os
-import pathlib
-import subprocess
-import sys
-
 import pytest
 import torch
 
@@ -32,8 +30,6 @@ from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import Model
 from repro_torch.serving import RenderRequest
-
-SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 
 def capture(monkeypatch, name: str) -> dict:
@@ -100,16 +96,48 @@ def test_lm_driver_tokens_equal_library(monkeypatch):
     assert seen["out"]["tokens"].shape == (2, 2)
 
 
-def test_lm_driver_refuses_unported_family():
-    """`python -m repro_torch.launch.serve` exits non-zero for a hybrid
-    arch and names the family."""
-    res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "lm",
-         "--device", "cpu", "--arch", "zamba2-1.2b", "--reduced", "--batch",
-         "1", "--prefill", "32", "--decode", "3"], capture_output=True,
-        text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(SRC)})
-    assert res.returncode != 0
-    assert "'hybrid' is not ported" in res.stderr and not res.stdout
+def greedy(m, batch: dict, decode: int):
+    """The library path of `serve.run_lm`: prefill, then greedy decode
+    from fresh caches sized prompt + decode."""
+    logits, _ = m.prefill(batch)
+    b, s = batch["tokens" if "tokens" in batch else "embeds"].shape[:2]
+    caches = m.init_caches(b, s + decode)
+    tok, toks = torch.argmax(logits, -1)[:, None], []
+    for _ in range(decode):
+        lg, caches = m.decode_step(caches, tok)
+        tok = torch.argmax(lg, -1)[:, None]
+        toks.append(tok)
+    return torch.cat(toks, 1)
+
+
+def test_lm_driver_refuses_unported_family(monkeypatch, capsys):
+    """Every family is served now: the driver's LM mode serves one reduced
+    arch of each new family (MoE with MLA, SSM, hybrid, enc-dec with the
+    reference's prompt of zero encoder frames and decoder tokens of 1),
+    each decoding the library path's greedy tokens. What it still refuses
+    is a mesh larger than one device (exit 2, saying so)."""
+    seen = capture(monkeypatch, "run_lm")
+    for arch in ("deepseek-v2-lite-16b", "mamba2-780m", "zamba2-1.2b",
+                 "seamless-m4t-large-v2"):
+        assert serve.main(["--mode", "lm", "--device", "cpu", "--arch", arch,
+                           "--reduced", "--batch", "2", "--prefill", "32",
+                           "--decode", "3"]) == 0, arch
+        cfg = reduced(get_arch(arch))
+        batch = serve.lm_batch(cfg, 2, 32, "cpu")
+        if cfg.family == "encdec":
+            assert batch.keys() == {"enc_embeds", "tokens"}
+            assert not batch["enc_embeds"].any()
+            assert batch["enc_embeds"].dtype == torch.bfloat16
+            assert bool((batch["tokens"] == 1).all())
+        want = greedy(Model(cfg, device="cpu", seed=0), batch, 3)
+        assert torch.equal(seen["out"]["tokens"], want), arch
+    capsys.readouterr()
+    monkeypatch.setattr(serve, "make_local_mesh",
+                        lambda dev: Mesh([dev, dev]))
+    assert serve.main(["--mode", "lm", "--device", "cpu", "--arch",
+                       "zamba2-1.2b", "--reduced"]) == 2
+    err = capsys.readouterr().err
+    assert "one-device mesh" in err and "sharding" in err
 
 
 def test_driver_refuses_missing_cuda(monkeypatch, capsys):

@@ -476,24 +476,36 @@ def test_teacher_forced_decode_matches_forward():
 
 
 def test_unported_families_and_cache_overflow_raise():
-    """The MoE, SSM, hybrid and enc-dec archs raise NotImplementedError
-    naming their family, and a decode past the cache's length raises
-    (the reference's clamped write would overwrite the last slot)."""
+    """Every family is ported now: what still raises is a family the
+    registry does not have (ValueError) and a decode past a cache's
+    length, for every cache kind: bf16 KV, int8 KV, the MLA latent
+    (deepseek), the hybrid's shared-block KV (zamba2) and the enc-dec
+    self-KV (seamless). The reference's clamped write would overwrite the
+    last slot; the port raises before writing anything."""
     for name in R.ARCHS:
-        cfg = T.reduced(T.get_arch(name))
-        if cfg.family in ("dense", "vlm", "audio"):
-            continue
-        with pytest.raises(NotImplementedError, match=repr(cfg.family)):
-            Model(cfg, device="cpu")
+        Model(T.reduced(T.get_arch(name)), device="meta")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        Model(dataclasses.replace(T.reduced(T.get_arch("qwen1.5-0.5b")),
+                                  family="rnn"), device="meta")
     _, tcfg = cfgs("qwen1.5-0.5b", "float32")
-    for kv_quant in (False, True):
-        m = Model(dataclasses.replace(tcfg, kv_quant=kv_quant), device="cpu")
+    tok = torch.ones((1, 1), dtype=torch.long)
+    models = [Model(dataclasses.replace(tcfg, kv_quant=q), device="cpu")
+              for q in (False, True)]
+    models += [Model(dataclasses.replace(T.reduced(T.get_arch(n)),
+                                         dtype="float32"), device="cpu")
+               for n in ("deepseek-v2-lite-16b", "zamba2-1.2b",
+                         "seamless-m4t-large-v2")]
+    for m in models:
         caches = m.init_caches(1, 2)
-        tok = torch.ones((1, 1), dtype=torch.long)
         for _ in range(2):
             _, caches = m.decode_step(caches, tok)
+        before = [x.clone() for _, x in _leaf_items(caches)
+                  if torch.is_tensor(x)]
         with pytest.raises(ValueError, match="past the end"):
             m.decode_step(caches, tok)
+        after = [x for _, x in _leaf_items(caches) if torch.is_tensor(x)]
+        assert all(torch.equal(a, b) for a, b in zip(after, before)), \
+            m.cfg.name
 
 
 def test_lm_modules_import_without_jax():

@@ -403,13 +403,16 @@ def check_engine_rejects_bad_batches():
 
 
 def check_entry_kernel_index_bound():
-    """K1 indexes entries, conic rows and mask bytes in int32: a fold of
-    B·T rows is held to T·K·16 < 2**31 (a batch of two 1080p frames,
-    2 x 8160 tiles x 512 entries, needs 133.7M)."""
+    """K1 indexes entries, conic rows and mask bytes in int32: one launch
+    is held to T·K·16 < 2**31 (a batch of two 1080p frames, 2 x 8160
+    tiles x 512 entries, needs 133.7M), and a fold of B·T rows past it is
+    launched in row ranges (`entry_row_ranges`) instead of refused."""
     from repro_torch.kernels import prtu
     prtu.check_entry_index(2 * 8160, 512)
     with pytest.raises(ValueError, match="int32"):
         prtu.check_entry_index((1 << 31) // (16 * 512), 512)
+    assert prtu.entry_row_ranges(2 * 8160, 512) == [(0, 2 * 8160)]
+    assert len(prtu.entry_row_ranges((1 << 31) // (16 * 512), 512)) == 2
 
 
 def check_hd1080_engine_batches_two_frames():
