@@ -206,31 +206,35 @@ Phases, in order:
      families at full width and depth, from seed-0 weights through
      `serve.run_lm` at batch 4, prefill 512, decode 64 (the enc-dec with
      the reference driver's prompt: zero encoder frames, tokens of 1):
-     11a deepseek-v2-lite-16b (its weights in bf16, the reference's own
-     `param_dtype` field: float32 masters and a bf16 copy would need 94
-     GB), 11b mamba2-780m, 11c zamba2-1.2b, 11d seamless-m4t-large-v2;
+     11a deepseek-v2-lite-16b (the driver's `--param-dtype bfloat16`,
+     the reference's own `param_dtype` field: float32 masters and a bf16
+     copy would need 94 GB), 11b mamba2-780m, 11c zamba2-1.2b, 11d
+     seamless-m4t-large-v2, each built by the driver (`serve.lm_model`);
      each as 10b (prefill ms first and warm, decode ms a token, tokens/s,
      peak memory, a warm step's device-busy ms and top kernels) and the
-     step's byte bound (every weight, all 64 experts' for the MoE, and
-     the caches' live part at 3.35 TB/s); each model freed before the
-     next.
+     step's byte bound (every weight a decode step reads, all 64 experts'
+     for the MoE and not the enc-dec's encoder, and the caches' live part
+     at 3.35 TB/s); each model freed before the next.
      e. per arch, 64 teacher-forced decode steps at batch 1 against
         `forward` (the SSM and hybrid forward at ssm_chunk 64, the MoE at
         moe_group 1 after its seed-0 run: its reference dispatch mixes the
-        tokens of a group): logits measured on seed-0 weights and with the
-        attention projections at their contraction fan-in
-        (`fan_in_attention`: self-, cross-, MLA and the hybrid's shared
-        block), the enc-dec's gated there (relative RMS <= 0.05,
+        tokens of a group): logits at full depth measured on seed-0
+        weights and with the attention projections at their contraction
+        fan-in (`fan_in_attention`: self-, cross-, MLA and the hybrid's
+        shared block), the enc-dec's gated there (relative RMS <= 0.05,
         agreement >= 0.9); the MoE's share of (token, layer) routed
-        differently; then every arch gated layer by layer (`LayerTape`:
-        each decode layer on the forward's input to it within relative
-        RMS 0.05), since through 26-48 layers an MoE expert swap or an
-        SSM state rounding grows past the logit gates (`family_self`)
+        differently. The MoE, SSM and hybrid part past those gates with
+        depth, in the reference as in the port (`python
+        tests/test_torch_lm_families.py --depth-sweep`), so their logits
+        are gated at full width on a model cut to FAMILY_GATE_DEPTH
+        layers; then every arch gated layer by layer at full depth
+        (`LayerTape`: each decode layer on the forward's input to it
+        within relative RMS 0.03) (`family_self`)
      f. reduced arctic-480b, deepseek, mamba2, zamba2 and seamless under
         float32 compute: forward, prefill and 8 decode steps on the card
         against the CPU from the same weights, rtol 1e-4 and atol 1e-4 x
         max|logit| (a decode that reads back bf16 state, SSM, hybrid and
-        enc-dec: two bf16 ulps of max|logit|, relative RMS 4e-3)
+        enc-dec: max |d| <= 3e-3 x max|logit|, relative RMS <= 1.5e-3)
   5. one {"kernels": [...]} line (K1's and K2's rows also carry phase 8's
      shard_launches, shard_ms and shard_bound_ms, and phase 9d's
      train_launches; K1's also phase 10a's driver_launches), the card
@@ -324,7 +328,6 @@ from repro_torch.serving import (HD_SCENE_KW, AdmissionRejected,  # noqa: E402
 from repro_torch.serving.sharding import tile_mesh  # noqa: E402
 from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
-from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import blocks as blocks_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
@@ -2866,15 +2869,17 @@ def decode_tokens(model, tokens, caches=None) -> tuple:
 def decode_step_bytes(model, caches, batch: int) -> int:
     """Bytes one decode step at the caches' `pos` must move: every weight read
     once (an untied input table only for the batch's rows; the MoE's
-    dispatch runs every expert, so every expert's weights), the live
-    positions 0..pos of each attention or latent cache read, the enc-dec's
-    encoder output read whole, and each SSM state and conv tail read and
-    written."""
+    dispatch runs every expert, so every expert's weights; not the enc-dec's
+    encoder, which only its prefill runs), the live positions 0..pos of
+    each attention or latent cache read, the enc-dec's encoder output read
+    whole, and each SSM state and conv tail read and written."""
     p = model.compute_params()
     pos = caches["pos"]
     n = batch * model.cfg.d_model * p["embed"]["tok"].element_size()
     for path, t in leaves(p):
         if path == "embed.tok" and not model.cfg.tie_embeddings:
+            continue
+        if path.startswith("encoder.") or path == "ln_enc":
             continue
         n += nbytes(t)
     for key, val in caches.items():
@@ -3104,16 +3109,26 @@ FAMILY_ARCHS = ("deepseek-v2-lite-16b", "mamba2-780m", "zamba2-1.2b",
 FAMILY_TRAFFIC = ["--mode", "lm", "--device", "cuda", "--batch", "4",
                   "--prefill", "512", "--decode", "64"]
 # deepseek's float32 master weights and their bf16 compute copy (94 GB) do
-# not fit one card: the reference's own field param_dtype="bfloat16"
-# (arctic-480b's setting) holds them in bf16, 31.4 GB, with no copy.
-FAMILY_PARAM_DTYPE = {"deepseek-v2-lite-16b": "bfloat16"}
+# not fit one card: the driver's --param-dtype bfloat16 (the reference's
+# own field param_dtype, arctic-480b's setting) holds them in bf16, 31.4
+# GB, with no copy.
+FAMILY_FLAGS = {"deepseek-v2-lite-16b": ["--param-dtype", "bfloat16"]}
 FAMILY_SELF_SEED = 11
+# 11e's logit gate at full width: the enc-dec at its full depth, the others
+# cut to the depth where the reference's own decode against forward stays
+# well inside relative RMS 0.05 (`python tests/test_torch_lm_families.py
+# --depth-sweep` on the CPU: the reference and the port grow alike with
+# depth and part past 0.05 a few layers further on).
+FAMILY_GATE_DEPTH = {"deepseek-v2-lite-16b": 2, "mamba2-780m": 2,
+                     "zamba2-1.2b": 2}
+LAYER_RMS_MAX = 0.03                 # 11e layerwise (measured <= 0.0223)
 CARD_CPU_FAMILIES = ("arctic-480b",) + FAMILY_ARCHS
 # 11f: a float32 decode that reads back bf16 state it wrote (an SSM state,
 # the enc-dec's encoder output) carries an f32 ulp that flips a bf16
-# rounding into later steps; such decodes are held within two bf16 ulps
-# of max|logit| and relative RMS 4e-3, as tests/test_torch_lm_families.py
-# holds them against the reference.
+# rounding into later steps; such decodes are held within max |d| 3e-3 x
+# max|logit| and relative RMS 1.5e-3, as tests/test_torch_lm_families.py
+# holds them against the reference (about twice the worst measured, on the
+# card and on the CPU).
 BF16_STATE_FAMILIES = ("ssm", "hybrid", "encdec")
 
 
@@ -3260,17 +3275,21 @@ def family_self(model, tag: str) -> dict:
     the expert runs on their sum, and a decode step (a group of one)
     equals a forward only where the forward groups each token alone.
 
-    Logits, measured on the seed-0 weights, then on the same weights with
-    every attention projection at its contraction dimension's fan-in
-    (`fan_in_attention`); the enc-dec's are gated there at the reference's
-    gates (relative RMS <= 0.05, agreement >= 0.9). Through 26-48 layers
-    the MoE (a rounding swaps one of 64 experts where two lie within it;
-    the share of (token, layer) routed differently is printed) and the
-    SSM and hybrid (the reference's init amplifies a bf16 state rounding
-    ~2x a layer, in the reference as in the port) part past those gates,
-    so their logits are measured only. Every family is then gated layer
-    by layer (`LayerTape`): each decode layer, on the forward's input to
-    it, adds what the forward's adds within relative RMS 0.05."""
+    Logits at full depth, measured on the seed-0 weights, then on the same
+    weights with every attention projection at its contraction
+    dimension's fan-in (`fan_in_attention`; the SSM has none). The
+    reference's gates (relative RMS <= 0.05, agreement >= 0.9) hold the
+    enc-dec there. The others part past them with depth, in the reference
+    as in the port (`tests/test_torch_lm_families.py --depth-sweep`: the
+    reference's init amplifies a bf16 rounding of the SSM state about 1.7x
+    a layer, and in the MoE a rounding swaps one of 64 experts where two
+    lie within it; the share of (token, layer) routed differently is
+    printed), so they are gated at full width on a model of
+    FAMILY_GATE_DEPTH[arch] layers drawn from seed 0 (fan-in attention
+    where the family has attention). Every family is then gated layer by
+    layer at full depth (`LayerTape`): each decode layer, on the forward's
+    input to it, adds what the forward's adds within relative RMS
+    LAYER_RMS_MAX."""
     cfg = model.cfg
     gen = torch.Generator(device="cpu").manual_seed(FAMILY_SELF_SEED)
     toks = torch.randint(0, cfg.vocab_size, (1, LM_SELF_TOKENS),
@@ -3280,13 +3299,14 @@ def family_self(model, tag: str) -> dict:
     if cfg.family in ("ssm", "hybrid") and LM_SELF_TOKENS % cfg.ssm_chunk:
         fwd["ssm_chunk"] = LM_SELF_TOKENS
     chunk = " at ssm_chunk 64" if fwd else ""
+    moe = dict(moe_group=1) if cfg.family == "moe" else {}
 
-    def twins(**changes):
-        return (twin(model, **fwd, **changes) if fwd or changes else model,
-                twin(model, **changes) if changes else model)
+    def twins(m, **changes):
+        return (twin(m, **fwd, **changes) if fwd or changes else m,
+                twin(m, **changes) if changes else m)
 
-    def logits(label, gate, **changes):
-        m_fwd, m_dec = twins(**changes)
+    def logits(m, label, gate, **changes):
+        m_fwd, m_dec = twins(m, **changes)
         with RoutingLog() as fwd_route:
             (full, _), fwd_ms = sync_wall_ms(lambda: m_fwd.forward(batch))
         caches = decode_caches(m_dec, batch, 1, LM_SELF_TOKENS)
@@ -3310,22 +3330,31 @@ def family_self(model, tag: str) -> dict:
         return dict(res, gated=gate, routing_flips=flips, forward_ms=fwd_ms,
                     decode_ms=dec_ms)
 
-    moe = dict(moe_group=1) if cfg.family == "moe" else {}
-    out = dict(seed0=logits("seed-0 weights", False))
+    out = dict(seed0=logits(model, "seed-0 weights", False))
     label = "seed-0 weights"
     if cfg.family != "ssm":
         out["rescaled"] = fan_in_attention(model)
         label = (f"fan-in attention ({out['rescaled']} projections)"
                  f"{', moe_group 1' if moe else ''}")
-        out["fan_in"] = logits(label, cfg.family == "encdec", **moe)
-    m_fwd, m_dec = twins(**moe)
+        out["fan_in"] = logits(model, label, cfg.family == "encdec", **moe)
+    depth = FAMILY_GATE_DEPTH.get(cfg.name)
+    if depth is not None:
+        cut = Model(dataclasses.replace(cfg, num_layers=depth),
+                    device=model.device, seed=0)
+        if cfg.family != "ssm":
+            fan_in_attention(cut)
+        out["gate_depth"] = depth
+        out["cut"] = logits(cut, f"{label}, {depth} of {cfg.num_layers} "
+                            "layers", True, **moe)
+        del cut
+    m_fwd, m_dec = twins(model, **moe)
     tape = LayerTape()
     tape.forward(m_fwd, batch)
     tape.decode(m_dec, toks, decode_caches(m_dec, batch, 1, LM_SELF_TOKENS))
     rms = tape.layer_rms()
     worst = max(range(len(rms)), key=rms.__getitem__)
-    check(rms[worst] <= 0.05, f"{tag} layerwise: layer {worst} relative "
-          f"RMS {rms[worst]:.4f} (<= 0.05)")
+    check(rms[worst] <= LAYER_RMS_MAX, f"{tag} layerwise: layer {worst} "
+          f"relative RMS {rms[worst]:.4f} (<= {LAYER_RMS_MAX})")
     out["layerwise"] = dict(layers=len(rms), max_rel_rms=rms[worst],
                             worst_layer=worst,
                             median_rel_rms=sorted(rms)[len(rms) // 2])
@@ -3333,7 +3362,7 @@ def family_self(model, tag: str) -> dict:
         f"each decode layer on the forward's input vs the forward's layer "
         f"over {LM_SELF_TOKENS} positions: relative RMS median "
         f"{out['layerwise']['median_rel_rms']:.4f}, max {rms[worst]:.4f} "
-        f"(layer {worst}; gate 0.05)")
+        f"(layer {worst}; gate {LAYER_RMS_MAX})")
     return out
 
 
@@ -3341,16 +3370,12 @@ def phase_family(name: str, tag: str) -> dict:
     """11a-11d for one arch at full width and depth from seed-0 weights
     through `serve.run_lm` (batch 4, prefill 512, decode 64), then its
     11e."""
-    args = serve_driver.parser().parse_args(FAMILY_TRAFFIC + ["--arch",
-                                                              name])
-    dev = torch.device("cuda")
+    args = serve_driver.parser().parse_args(
+        FAMILY_TRAFFIC + ["--arch", name] + FAMILY_FLAGS.get(name, []))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_arch(name)
-    if name in FAMILY_PARAM_DTYPE:
-        cfg = dataclasses.replace(cfg, param_dtype=FAMILY_PARAM_DTYPE[name])
-    model, init_ms = sync_wall_ms(lambda: Model(
-        cfg, device=dev, seed=0, mesh=make_local_mesh(dev)))
+    model, init_ms = sync_wall_ms(lambda: serve_driver.lm_model(args))
+    cfg = model.cfg
     res = lm_serve(args, model, tag)
     log(f"[{tag}] weights drawn in {init_ms:.0f} ms ({cfg.param_dtype})")
     res.update(init_ms=init_ms, param_dtype=cfg.param_dtype)
@@ -3366,8 +3391,8 @@ def card_vs_cpu_family(name: str, dev) -> dict:
     prefill and 8 decode steps of the same weights on `dev` and on the
     CPU. Returns the largest |Δ| over max|logit| and the relative RMS of
     each; forward and prefill are checked against rtol 1e-4 and atol 1e-4
-    x max|logit| (as 10d), the decode too, or within two bf16 ulps for a
-    family in BF16_STATE_FAMILIES."""
+    x max|logit| (as 10d), the decode too, or within 3e-3 x max|logit| and
+    relative RMS 1.5e-3 for a family in BF16_STATE_FAMILIES."""
     cfg = dataclasses.replace(reduced(get_arch(name)), dtype="float32",
                               attn_chunk=8, ssm_chunk=8)
     cpu = Model(cfg, device="cpu", seed=0)
@@ -3402,7 +3427,7 @@ def card_vs_cpu_family(name: str, dev) -> dict:
                     / torch.sqrt((want ** 2).mean()))
         within_1e4 = bool((err <= 1e-4 * scale + 1e-4 * want.abs()).all())
         if label == "decode" and cfg.family in BF16_STATE_FAMILIES:
-            check(float(err.max()) <= 2 ** -6 * scale and rms <= 4e-3,
+            check(float(err.max()) <= 3e-3 * scale and rms <= 1.5e-3,
                   f"card vs CPU {name} {label}: max |Δ| {float(err.max())} "
                   f"(max|logit| {scale}), relative RMS {rms}")
         else:

@@ -19,6 +19,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --mode render --frames 16
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
         --arch qwen1.5-0.5b --reduced --prefill 64 --decode 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+        --arch deepseek-v2-lite-16b --param-dtype bfloat16
 
 Everything runs on `--device` (default "cuda"); with "cuda" and no CUDA
 device the driver exits non-zero without running. `run_render` and
@@ -28,6 +30,7 @@ check it; `main` prints it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -128,14 +131,17 @@ def serve_render(args) -> int:
 
 
 def lm_model(args):
-    """The driver's model: `--arch` (reduced under `--reduced`) with
-    weights drawn from seed 0 on `--device`."""
+    """The driver's model: `--arch` (reduced under `--reduced`, its
+    parameters held in `--param-dtype` where given) with weights drawn
+    from seed 0 on `--device`."""
     from repro_torch.configs import get_arch, reduced as reduce_cfg
     from repro_torch.models.model import Model
 
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
+    if args.param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
     dev = torch.device(args.device)
     return Model(cfg, device=dev, seed=0, mesh=make_local_mesh(dev))
 
@@ -226,6 +232,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prefill", type=int, default=64)
     ap.add_argument("--decode", type=int, default=8)
+    ap.add_argument("--param-dtype", choices=["float32", "bfloat16"],
+                    help="hold the parameters in this dtype (default: the "
+                    "config's). bfloat16 keeps no float32 master copy: "
+                    "deepseek-v2-lite-16b needs it to fit one 80 GB card")
     return ap
 
 

@@ -21,6 +21,8 @@ against the reference:
                 without a CUDA device exit non-zero with a message;
                 `Model` refuses a 2-device mesh
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -114,15 +116,21 @@ def test_lm_driver_refuses_unported_family(monkeypatch, capsys):
     """Every family is served now: the driver's LM mode serves one reduced
     arch of each new family (MoE with MLA, SSM, hybrid, enc-dec with the
     reference's prompt of zero encoder frames and decoder tokens of 1),
-    each decoding the library path's greedy tokens. What it still refuses
-    is a mesh larger than one device (exit 2, saying so)."""
+    each decoding the library path's greedy tokens; deepseek with its
+    parameters held in bf16 (`--param-dtype bfloat16`, as it is served at
+    full width). What it still refuses is a mesh larger than one device
+    (exit 2, saying so)."""
     seen = capture(monkeypatch, "run_lm")
-    for arch in ("deepseek-v2-lite-16b", "mamba2-780m", "zamba2-1.2b",
-                 "seamless-m4t-large-v2"):
+    for arch, extra in (("deepseek-v2-lite-16b", {"param_dtype": "bfloat16"}),
+                        ("mamba2-780m", {}), ("zamba2-1.2b", {}),
+                        ("seamless-m4t-large-v2", {})):
+        flags = [f"--{k.replace('_', '-')}={v}" for k, v in extra.items()]
         assert serve.main(["--mode", "lm", "--device", "cpu", "--arch", arch,
                            "--reduced", "--batch", "2", "--prefill", "32",
-                           "--decode", "3"]) == 0, arch
-        cfg = reduced(get_arch(arch))
+                           "--decode", "3"] + flags) == 0, arch
+        cfg = dataclasses.replace(reduced(get_arch(arch)), **extra)
+        dtypes = {p.dtype for p in seen["out"]["model"].parameters()}
+        assert dtypes == {torch.bfloat16 if extra else torch.float32}, arch
         batch = serve.lm_batch(cfg, 2, 32, "cpu")
         if cfg.family == "encdec":
             assert batch.keys() == {"enc_embeds", "tokens"}

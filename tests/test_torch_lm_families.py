@@ -25,17 +25,24 @@ Tolerances, and what an x86 CPU measured (worst over the five archs):
 
   float32 compute   forward and prefill logits within rtol 1e-4 and atol
                     1e-4 x max|logit| (measured 1.3e-5 x max|logit|), loss
-                    rtol 1e-4. Decode logits and every cache within two
-                    bf16 ulps of the largest value (max |d| <= 2**-6 x
-                    max|x|) and relative RMS <= 4e-3 (one bf16 ulp): the
-                    caches are bf16, so an f32 ulp between two exp or
-                    log1p implementations flips a rounding now and then,
-                    and a recurrent state (SSM) or a cache read back (enc-
-                    dec) carries it into later steps. The reference
-                    differs from itself by as much between LLVM -O0 and
-                    -O3: decode logits up to 1.1e-3 x max|logit| (the port
-                    1.1e-3), the hybrid's group state 7.1e-3 x max (the
-                    port 7.1e-3)
+                    rtol 1e-4. The MoE archs, whose decode state is only
+                    attention or latent caches, as `test_torch_lm.py`
+                    holds the dense family: decode logits within rtol
+                    1e-4 / atol 1e-4 x max|logit| (measured 9.5e-7 x
+                    max|logit|) and every cache within one bf16 ulp (rtol
+                    2**-7). The archs that read back bf16 state they
+                    wrote (an SSM state, the enc-dec's encoder output):
+                    an f32 ulp between two exp or log1p implementations
+                    flips a bf16 rounding of that state now and then, and
+                    later steps carry it. Their limits are about twice
+                    the worst measured: decode logits max |d| <= 3e-3 x
+                    max|logit| and relative RMS <= 1.5e-3 (measured
+                    1.1e-3 and 6.7e-4, the enc-dec), caches max |d| <=
+                    1.5e-2 x max|x| and relative RMS <= 3e-3 (measured
+                    7.1e-3, the hybrid's group state, and 1.5e-3, its
+                    tail). The reference differs from itself by as much
+                    between LLVM -O0 and -O3: decode logits up to 1.1e-3
+                    x max|logit|, the hybrid's group state 7.1e-3 x max
   bf16 compute      logits relative RMS <= 1e-2, argmax agreement >= 0.95
                     and atol 0.08 / rtol 0.05 (measured 4.4e-3 and 0.975,
                     the enc-dec's forward), loss rtol 1e-2; caches
@@ -205,18 +212,24 @@ def port_model(refs: dict, name: str, dtype: str, **extra) -> Model:
     return m
 
 
-def hold_state(got, want, dtype: str, label: str) -> None:
-    """Caches, and float32 decode logits, at the module's tolerance: under
-    float32 compute max |d| <= 2**-6 x max|want| and relative RMS <= 4e-3,
-    under bf16 relative RMS <= 1e-2."""
+# Families whose decode reads back bf16 state it wrote (module docstring).
+STATE_FAMILIES = ("ssm", "hybrid", "encdec")
+
+
+def hold_state(got, want, dtype: str, family: str, label: str,
+               logits: bool = False) -> None:
+    """Float32 decode logits (`logits`) or a cache at the module's
+    tolerance for `family`; under bf16 compute caches at relative RMS <=
+    1e-2 and logits at `hold`'s."""
     got, want = f32(got), f32(want)
     assert got.shape == want.shape, label
-    if dtype == "float32":
-        err = float(np.abs(got - want).max())
-        assert err <= 2 ** -6 * float(np.abs(want).max()), (label, err)
-        assert rel_rms(got, want) <= 4e-3, (label, rel_rms(got, want))
-    else:
-        hold_cache(got, want, dtype, label)
+    if dtype != "float32" or family not in STATE_FAMILIES:
+        (hold if logits else hold_cache)(got, want, dtype, label)
+        return
+    max_rel, rms = (3e-3, 1.5e-3) if logits else (1.5e-2, 3e-3)
+    err = float(np.abs(got - want).max())
+    assert err <= max_rel * float(np.abs(want).max()), (label, err)
+    assert rel_rms(got, want) <= rms, (label, rel_rms(got, want))
 
 
 def port_batch(ins: dict) -> dict:
@@ -560,7 +573,8 @@ def test_model_matches_reference(refs, name):
         assert got.keys() == {k[len("prefill/"):] for k in ref
                               if k.startswith("prefill/")}, label
         for k, g in got.items():
-            hold_state(g, ref[f"prefill/{k}"], dtype, f"{label} prefill {k}")
+            hold_state(g, ref[f"prefill/{k}"], dtype, m.cfg.family,
+                       f"{label} prefill {k}")
 
         c = m.init_caches(2, DECODE)
         if "enc_out" in c:
@@ -570,17 +584,15 @@ def test_model_matches_reference(refs, name):
             lg, c = m.decode_step(c, torch.from_numpy(
                 ins["dec_tokens"][:, i:i + 1]).long())
             steps.append(lg)
-        if dtype == "float32":
-            hold_state(torch.stack(steps), ref["steps"], dtype,
-                       label + " decode")
-        else:
-            hold(torch.stack(steps), ref["steps"], dtype, label + " decode")
+        hold_state(torch.stack(steps), ref["steps"], dtype, m.cfg.family,
+                   label + " decode", logits=True)
         got = dict(_leaf_items(c))
         assert got.keys() == {k[len("cache/"):] for k in ref
                               if k.startswith("cache/")}, label
         assert got.pop("pos") == int(ref["cache/pos"]) == DECODE
         for k, g in got.items():
-            hold_state(g, ref[f"cache/{k}"], dtype, f"{label} cache {k}")
+            hold_state(g, ref[f"cache/{k}"], dtype, m.cfg.family,
+                       f"{label} cache {k}")
 
         carried = convert.lm_caches_from_numpy(with_dtypes_of(
             {k[len("cache/"):]: v for k, v in ref.items()
@@ -637,5 +649,109 @@ def test_teacher_forced_decode_matches_forward():
             assert all(torch.equal(a, b) for a, b in zip(after, before))
 
 
+# ---------------------------------------------------------------------------
+# Decode against forward by depth at full width (a script, not a test)
+# ---------------------------------------------------------------------------
+
+SWEEP_TOKENS = 64
+SWEEP_DEPTHS = {"mamba2-780m": (2, 4, 8, 12, 24),
+                "zamba2-1.2b": (2, 6, 8, 12, 18),
+                "deepseek-v2-lite-16b": (2, 3)}
+ATTN_IN_PROJ = ("wq", "wk", "wv", "w_q", "w_uk", "w_uv")
+
+
+def sweep_cfg(mod, name: str, depth: int):
+    """`name` at full width, `depth` layers, bf16 compute, as
+    `chip_smoke.py`'s 11e runs it: the MoE at moe_group 1 with bf16
+    parameters, the SSM and hybrid at ssm_chunk 64."""
+    cfg = mod.get_arch(name)
+    kw = dict(num_layers=depth, dtype="bfloat16")
+    if cfg.family == "moe":
+        kw.update(moe_group=1, param_dtype="bfloat16")
+    if cfg.family in ("ssm", "hybrid"):
+        kw.update(ssm_chunk=SWEEP_TOKENS)
+    return dataclasses.replace(cfg, **kw)
+
+
+def fan_in_tree(tree: dict, parent: str = "") -> dict:
+    """`chip_smoke.fan_in_attention` on a numpy parameter tree: every
+    attention input projection (..., in, heads, hd) times (heads / in) **
+    0.5 and every attention output projection wo (..., heads, hd, d) times
+    heads ** -0.5, rounded back to the leaf's dtype."""
+    out = {}
+    for k, v in tree.items():
+        scale = None
+        if isinstance(v, dict):
+            out[k] = fan_in_tree(v, k)
+            continue
+        if parent in ("attn", "xattn") and k in ATTN_IN_PROJ:
+            scale = (v.shape[-2] / v.shape[-3]) ** 0.5
+        elif parent in ("attn", "xattn") and k == "wo":
+            scale = v.shape[-3] ** -0.5
+        out[k] = v if scale is None else \
+            (v.astype(np.float32) * np.float32(scale)).astype(v.dtype)
+    return out
+
+
+def logit_gap(dec, full) -> dict:
+    dec, full = f32(dec), f32(full)
+    return dict(rel_rms=rel_rms(dec, full), agreement=float(
+        (dec.argmax(-1) == full.argmax(-1)).mean()))
+
+
+def depth_sweep(names) -> list:
+    """For each arch in `names` and each depth of SWEEP_DEPTHS: 64
+    teacher-forced decode steps at batch 1 against `forward`'s logits
+    (relative RMS, argmax agreement) in the reference and in the port on
+    the CPU, from the reference's `init(PRNGKey(0))` with the attention
+    projections at their contraction dimension's fan-in (`fan_in_tree`;
+    the SSM has none). Prints one JSON line per (arch, depth)."""
+    import gc
+    import json
+    rows = []
+    for name in names:
+        for depth in SWEEP_DEPTHS[name]:
+            jm = JModel(sweep_cfg(R, name, depth))
+            params = jax.tree.map(np.asarray, jax.jit(jm.init)(
+                jax.random.PRNGKey(0)))
+            if jm.cfg.family != "ssm":
+                params = fan_in_tree(params)
+            toks = np.random.default_rng(11).integers(
+                0, jm.cfg.vocab_size, (1, SWEEP_TOKENS)).astype(np.int32)
+            full = jax.jit(jm.forward)(params, dict(tokens=toks))[0]
+
+            def decode(p, c, t, jm=jm):
+                return jax.lax.scan(lambda c, x: jm.decode_step(
+                    p, c, x[:, None])[::-1], c, t.T)[1]
+            dec = jax.jit(decode)(params, jm.init_caches(1, SWEEP_TOKENS),
+                                  toks)
+            row = dict(arch=name, depth=depth, tokens=SWEEP_TOKENS,
+                       reference=logit_gap(np.swapaxes(dec, 0, 1), full))
+            del full, dec, jm
+            tm = Model(sweep_cfg(T, name, depth), device="cpu")
+            tm.load_state_dict(convert.lm_params_from_numpy(params))
+            del params
+            t_toks = torch.from_numpy(toks).long()
+            with torch.no_grad():
+                full = tm.forward(dict(tokens=t_toks))[0]
+                c, outs = tm.init_caches(1, SWEEP_TOKENS), []
+                for i in range(SWEEP_TOKENS):
+                    lg, c = tm.decode_step(c, t_toks[:, i:i + 1])
+                    outs.append(lg)
+            row["port_cpu"] = logit_gap(torch.stack(outs, 1), full)
+            del tm, full, outs, c
+            gc.collect()
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
 if __name__ == "__main__":
-    write_reference(sys.argv[1])
+    # python tests/test_torch_lm_families.py OUT.npz: the reference's
+    # outputs for the tests. python tests/test_torch_lm_families.py
+    # --depth-sweep [ARCH ...]: `depth_sweep` (run it with XLA_FLAGS=
+    # --xla_allow_excess_precision=false, as the tests run the reference).
+    if sys.argv[1] == "--depth-sweep":
+        depth_sweep(sys.argv[2:] or list(SWEEP_DEPTHS))
+    else:
+        write_reference(sys.argv[1])
