@@ -22,9 +22,14 @@ Layout mirrors the JAX reference package module for module:
     configs/   the architecture registry (all ten of the reference's)
     models/    the LM, every family of the registry (dense, MoE with MLA,
                SSM, hybrid, enc-dec): forward, prefill and decode with
-               in-place caches (`models.Model`)
+               in-place caches, and a differentiable loss with remat
+               (`models.Model`)
+    optim/     AdamW, Adafactor and gradient compression for the LM
+    data/      the LM's synthetic token batches
     launch/    the serving CLI (`python -m repro_torch.launch.serve`,
-               render and LM modes) and the one-device mesh
+               render and LM modes), the LM training CLI
+               (`python -m repro_torch.launch.train`), the step builders
+               and the one-device mesh
     convert    numpy -> port types (and a TrainState and LM params back),
                for parity tests and for carrying state across packages
 """

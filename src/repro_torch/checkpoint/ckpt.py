@@ -11,7 +11,8 @@ safe (restart picks the previous complete step).
 Leaves are numbered in the order `jax.tree.flatten` gives the reference's
 trees: dataclass fields in declaration order, NamedTuple fields, list and
 tuple items in order, dict values by sorted key; None holds no leaf. So a
-checkpoint written by either package restores in the other.
+checkpoint written by either package restores in the other, bf16 leaves
+included (stored as their 16 bits, as the reference's are).
 """
 from __future__ import annotations
 
@@ -74,10 +75,33 @@ def unflatten(tree_like, leaves) -> object:
     return out
 
 
+# numpy has no bfloat16: the reference's bf16 leaves (ml_dtypes arrays)
+# reach an .npz as 2-byte void ("|V2") holding their bits, and the port
+# writes its bf16 tensors' bits the same way.
+_BF16_BITS = np.dtype("V2")
+
+
 def _to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(_BF16_BITS)
+        return x.numpy()
     return np.asarray(x)
+
+
+def _dtype_name(x, arr: np.ndarray) -> str:
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(arr.dtype)
+
+
+def _to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    if arr.dtype == _BF16_BITS or arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device=like.device, dtype=like.dtype)
 
 
 def save(ckpt_dir: str, step: int, tree) -> str:
@@ -91,7 +115,8 @@ def save(ckpt_dir: str, step: int, tree) -> str:
     arrays = {f"leaf_{i}": _to_numpy(x) for i, x in enumerate(leaves)}
     manifest = dict(step=step, num_leaves=len(leaves),
                     shapes=[list(a.shape) for a in arrays.values()],
-                    dtypes=[str(a.dtype) for a in arrays.values()])
+                    dtypes=[_dtype_name(x, a) for x, a in
+                            zip(leaves, arrays.values())])
     np.savez(os.path.join(tmp, "shard_0.npz"), **arrays)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -135,8 +160,7 @@ def restore(ckpt_dir: str, step: int, tree_like):
             raise ValueError(f"leaf {i}: {tuple(np.shape(old))} vs "
                              f"{arr.shape}")
         if isinstance(old, torch.Tensor):
-            arr = torch.from_numpy(arr).to(device=old.device,
-                                           dtype=old.dtype)
+            arr = _to_tensor(arr, old)
         new.append(arr)
     return unflatten(tree_like, new)
 

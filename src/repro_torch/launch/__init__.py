@@ -1,2 +1,4 @@
 """Launch entry points: `launch.serve` (the serving CLI, render and LM
-modes) and `launch.mesh` (the one-device mesh)."""
+modes), `launch.train` (the LM training CLI), `launch.steps` (the train,
+prefill and decode step builders) and `launch.mesh` (the one-device
+mesh)."""

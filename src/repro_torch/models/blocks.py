@@ -1,14 +1,20 @@
 """Block assembly for every family (dense, MoE with MLA or GQA, SSM), and
 the loop over the stacked layer axis.
 
-The reference runs its stacked layers with `lax.scan` (and remat) and
-pins activation shardings at block boundaries (`boundary`, `gathered`).
-On one device those constraints are the identity, and serving keeps no
-activations for a backward, so here a block is plain code and
-`scan_stack` is a Python loop over the leading axis of each stacked
-tensor (views, no per-layer copies).
+The reference runs its stacked layers with `lax.scan` under
+`jax.checkpoint` (remat) and pins activation shardings at block
+boundaries (`boundary`, `gathered`). On one device those constraints are
+the identity, so here a block is plain code and `scan_stack` is a Python
+loop over the leading axis of each stacked tensor (views, no per-layer
+copies). With gradients enabled, each block runs under
+`torch.utils.checkpoint` (`remat`, on by default as in the reference):
+the backward recomputes the block's activations from its input instead
+of keeping them.
 """
 from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -22,6 +28,23 @@ from repro_torch.models.pspec import tree_map
 def layer(params_stacked, i: int):
     """Layer i's parameters: a view of each stacked tensor."""
     return tree_map(lambda t: t[i], params_stacked)
+
+
+def unstack(params_stacked) -> list:
+    """Every layer's parameters: views from one `unbind` of each stacked
+    tensor, whose backward stacks the layers' gradients once (indexing
+    layer by layer would write a full-size gradient for every layer)."""
+    n = num_layers(params_stacked)
+    parts = tree_map(lambda t: t.unbind(0), params_stacked)
+    return [tree_map(lambda ts, i=i: ts[i], parts) for i in range(n)]
+
+
+def remat_call(fn, *args):
+    """`fn(*args)`, under `torch.utils.checkpoint` when gradients are
+    enabled."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def num_layers(params_stacked) -> int:
@@ -116,12 +139,23 @@ def ssm_block(p, x, cfg: ModelConfig, with_state: bool = False):
     return x + S.mamba_train(p["mixer"], h, cfg), None
 
 
-def scan_stack(block_fn, params_stacked, x, cfg: ModelConfig):
+def keep_all(out):
+    return out
+
+
+def scan_stack(block_fn, params_stacked, x, cfg: ModelConfig,
+               remat: bool = True, keep=keep_all):
     """Run `block_fn` over the stacked layers in order; returns the output
-    and the list of each layer's second result."""
+    and the list of `keep` of each layer's second result. With `remat`
+    (and gradients enabled) each block is checkpointed; `keep` runs
+    inside it, so a result the caller drops is not kept either."""
+    def run(lp, x):
+        x, out = block_fn(lp, x, cfg)
+        return x, keep(out)
+
     outs = []
-    for i in range(num_layers(params_stacked)):
-        x, out = block_fn(layer(params_stacked, i), x, cfg)
+    for lp in unstack(params_stacked):
+        x, out = remat_call(run, lp, x) if remat else run(lp, x)
         outs.append(out)
     return x, outs
 

@@ -4,7 +4,8 @@ Each function rounds where the reference's does: weights are cast to the
 activations' dtype at use (a no-op for weights the model already holds in
 that dtype), `rmsnorm` takes its variance in float32 and casts the rsqrt
 back before two products in the activations' dtype, and `apply_rope`
-rotates in float32 and casts back.
+rotates in float32 and casts back. Where the reference's gradient is a
+rule of jax's own (`lax.logistic`), the port's backward is that rule.
 """
 from __future__ import annotations
 
@@ -45,12 +46,29 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 # --- MLP ------------------------------------------------------------------
 
+class _Logistic(torch.autograd.Function):
+    """`lax.logistic` with jax's gradient, g · (s · (1 - s)): the autograd
+    of the written-out formula would multiply a zero cotangent by
+    exp(-x) = inf below x ≈ -88 and give NaN, where jax's is finite."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
 def sigmoid(x):
     """1 / (1 + exp(-x)), rounded to x's dtype at each step: XLA's
     expansion of the reference's `lax.logistic` (`jax.nn.silu`), which
     `torch.sigmoid`'s single rounding misses by a bf16 ulp in a few
-    percent of elements."""
-    return 1 / (1 + torch.exp(-x))
+    percent of elements. Its gradient is jax's (`_Logistic`)."""
+    return _Logistic.apply(x)
 
 
 def silu(x):

@@ -10,9 +10,11 @@ Rounding follows the reference step for step: `softplus` is jax's
 `logaddexp(x, 0)` written out in the input's dtype, the depthwise conv
 sums its four taps in the reference's order, the masked decay selects 0
 above the diagonal (where `exp` may overflow) rather than multiplying by
-the mask, and every cast to the activations' dtype sits where the
-reference writes it (the intra-chunk weights, the state weights, the
-scan carry, the inter-chunk decay). The reference's three-operand
+the mask, before the `exp` as well as after it so that its gradient is
+finite where the reference's is NaN (`intra_chunk_weight`), and every
+cast to the activations' dtype sits where the reference writes it (the
+intra-chunk weights, the state weights, the scan carry, the inter-chunk
+decay). The reference's three-operand
 einsums are contracted in the pairs jax's `einsum` picks for them.
 """
 from __future__ import annotations
@@ -45,11 +47,32 @@ def mamba_specs(cfg: ModelConfig):
     )
 
 
+def _replace_inf(x):
+    return torch.where(torch.isinf(x), torch.zeros_like(x), x)
+
+
+class _Softplus(torch.autograd.Function):
+    """`jnp.logaddexp(x, 0)` with its custom JVP: the gradient is
+    g · exp(x - out), each infinity replaced by 0 first."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+        out = torch.where(torch.isnan(x), x, out)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(_replace_inf(x) - _replace_inf(out))
+
+
 def softplus(x):
     """`jax.nn.softplus`: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|)),
-    rounded to x's dtype at each step (NaN passes through)."""
-    out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
-    return torch.where(torch.isnan(x), x, out)
+    rounded to x's dtype at each step (NaN passes through); its gradient
+    is jax's (`_Softplus`)."""
+    return _Softplus.apply(x)
 
 
 def _conv_causal(x, w, b):
@@ -63,6 +86,16 @@ def _gated_norm(y, z, w, eps):
     y = y * silu(z)
     var = torch.mean(torch.square(y.float()), -1, keepdim=True)
     return (y * torch.rsqrt(var + eps).to(y.dtype)) * w
+
+
+def intra_chunk_weight(decay, mask):
+    """exp(decay) on and below the diagonal, 0 above it. Above the
+    diagonal the exponent is positive and `exp` may overflow to inf. The
+    reference selects 0 after the `exp` only (`where(mask, exp(decay),
+    0)`), so its backward multiplies the zero cotangent by inf and gives
+    NaN. Selecting the exponent's 0 before the `exp` as well keeps the
+    forward bit for bit and makes the backward finite."""
+    return torch.where(mask, torch.exp(torch.where(mask, decay, 0.0)), 0.0)
 
 
 def ssd_chunked(x, dt, a_log, B, C, chunk: int):
@@ -90,12 +123,11 @@ def ssd_chunked(x, dt, a_log, B, C, chunk: int):
     cum = torch.cumsum(dAc, dim=2)                        # (B, nc, Q, H)
     seg_end = cum[:, :, -1:, :]                           # chunk's decay
 
-    # Intra-chunk: y_q = sum_{k<=q} C_q.B_k e^{cum_q-cum_k} dt_k x_k. Above
-    # the diagonal the exponent is positive and may overflow: select 0.
+    # Intra-chunk: y_q = sum_{k<=q} C_q.B_k e^{cum_q-cum_k} dt_k x_k.
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,Q,K,H)
     iq = torch.arange(chunk, device=x.device)
     mask = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
-    w = torch.where(mask, torch.exp(decay), 0.0)
+    w = intra_chunk_weight(decay, mask)
     cb = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
     wgt = (cb[..., None] * w * dtc[:, :, None, :, :]).to(dt_x)
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", wgt, xc)

@@ -15,7 +15,7 @@ weights across packages is a key-for-key copy
 
     specs()                      — PSpec tree (drives init and the layout)
     forward(batch)               — logits (B, S, padded_vocab), aux
-    loss(batch)                  — next-token CE + 0.01 aux
+    loss(batch)                  — next-token CE + 0.01 aux, differentiable
     prefill(batch)               — last-token logits, decode caches
     init_caches(batch, seq)      — empty decode caches (KV, int8 KV under
                                    `cfg.kv_quant`, MLA latent, SSM state)
@@ -36,13 +36,23 @@ KV cache a group for the shared block) and `tail=(., .)`; enc-dec
 state) in `init_caches` but (state, conv) in `prefill`'s caches: the
 reference's order, kept (its decode starts from `init_caches`).
 
+Training: `loss` carries gradients to the parameters once they are
+trainable (`model.requires_grad_(True)`, as `launch.steps`' train step
+does; serving leaves them frozen). `forward`, `prefill` and
+`decode_step` run without autograd. Under autograd each stacked block is
+checkpointed, as by the reference's `scan_stack` (its `remat=True`); the
+hybrid's group of Mamba2 blocks and its shared attention block are
+checkpointed as one, as the reference's `jax.checkpoint(group_fn)`.
+
 Precision: master weights stay in `cfg.param_dtype`; compute runs in
 `cfg.dtype`. The reference casts each weight at its use; the port casts
-the whole tree once and reuses it until a parameter changes
-(`compute_params`), which gives the same values (no copy when the two
-dtypes agree). Attention and latent caches are bf16 even under
-`dtype="float32"`, as in the reference; prefill's enc-dec caches keep the
-compute dtype, as the reference's do.
+the whole tree once (`compute_params`), which gives the same values (no
+copy when the two dtypes agree). Without autograd the cast is reused
+until a parameter changes; under autograd it is cast afresh for each
+forward, so each backward runs through its own cast. Attention and
+latent caches are bf16 even under `dtype="float32"`, as in the
+reference; prefill's enc-dec caches keep the compute dtype, as the
+reference's do.
 
 Decode caches are written in place and carry `pos` as a Python int; a
 decode past an attention cache's length raises before anything is
@@ -263,13 +273,16 @@ class Model(nn.Module):
         return tree_map(self.get_parameter, _paths(self.specs()))
 
     def compute_params(self) -> dict:
-        """The parameter tree cast to the compute dtype, cast once and
-        reused while no parameter changes (by storage and version)."""
+        """The parameter tree cast to the compute dtype. Without autograd
+        the cast is reused while no parameter changes (by storage and
+        version); under autograd it is made afresh, on the tape."""
         tree = self.params()
         dt = _compute_dtype(self.cfg)
         flat = [t for _, t in leaves(tree)]
         if all(t.dtype == dt for t in flat):
             return tree
+        if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
+            return tree_map(lambda t: t.to(dt), tree)
         key = (dt,) + tuple((t.data_ptr(), t.device, t._version)
                             for t in flat)
         if key != self._cast_key:
@@ -293,65 +306,75 @@ class Model(nn.Module):
             _compute_dtype(cfg))
 
     def _backbone(self, p, x):
-        """The decoder-only stacks: (output, aux)."""
+        """The decoder-only stacks: (output, aux). Only the MoE's aux is
+        kept of the blocks' second results."""
         cfg = self.cfg
         aux = self._zero()
+        stack = functools.partial(B.scan_stack, cfg=cfg, keep=_drop)
         if cfg.family in DENSE_FAMILIES:
-            x, _ = B.scan_stack(B.dense_block, p["layers"], x, cfg)
+            x, _ = stack(B.dense_block, p["layers"], x)
         elif cfg.family == "moe":
             if cfg.first_k_dense:
-                x, _ = B.scan_stack(B.dense_ffn_block, p["first"], x, cfg)
-            x, outs = B.scan_stack(B.moe_block, p["layers"], x, cfg)
-            aux = torch.sum(torch.stack([a for a, _ in outs]))
+                x, _ = stack(B.dense_ffn_block, p["first"], x)
+            x, auxs = stack(B.moe_block, p["layers"], x,
+                            keep=lambda out: out[0])
+            aux = torch.sum(torch.stack(auxs))
         elif cfg.family == "ssm":
-            x, _ = B.scan_stack(B.ssm_block, p["layers"], x, cfg)
+            x, _ = stack(B.ssm_block, p["layers"], x)
         else:                                               # hybrid
-            for g in range(B.num_layers(p["groups"])):
-                x, _ = B.scan_stack(B.ssm_block, B.layer(p["groups"], g), x,
-                                    cfg)
-                x, _ = B.dense_block(p["shared_attn"], x, cfg)
+            def group(gp, shared, x):
+                x, _ = B.scan_stack(B.ssm_block, gp, x, cfg, remat=False)
+                return B.dense_block(shared, x, cfg)[0]
+
+            for gp in B.unstack(p["groups"]):
+                x = B.remat_call(group, gp, p["shared_attn"], x)
             if "tail" in p:
-                x, _ = B.scan_stack(B.ssm_block, p["tail"], x, cfg)
+                x, _ = stack(B.ssm_block, p["tail"], x)
         return x, aux
 
     def _encode(self, p, batch):
         cfg = self.cfg
         x = batch["enc_embeds"].to(_compute_dtype(cfg))
-        x, _ = B.scan_stack(encoder_block, p["encoder"], x, cfg)
+        x, _ = B.scan_stack(encoder_block, p["encoder"], x, cfg, keep=_drop)
         return L.rmsnorm(x, p["ln_enc"].to(x.dtype), cfg.norm_eps)
 
-    def _decode_stack(self, p, x, enc_out):
-        """The enc-dec decoder over its stacked layers: (output, each
-        layer's self-attention (K, V))."""
+    def _decode_stack(self, p, x, enc_out, keep=B.keep_all):
+        """The enc-dec decoder over its stacked layers: (output, `keep` of
+        each layer's self-attention (K, V)); each layer's cross-attention
+        K/V are computed inside its (checkpointed) block."""
         cfg = self.cfg
-        kvs = []
-        for i in range(B.num_layers(p["layers"])):
-            lp = B.layer(p["layers"], i)
-            x, kv = decoder_block(lp, x, enc_kv_from(lp["xattn"], enc_out,
-                                                     cfg), cfg)
-            kvs.append(kv)
-        return x, kvs
+
+        def block(lp, x, cfg):
+            return decoder_block(lp, x, enc_kv_from(lp["xattn"], enc_out,
+                                                    cfg), cfg)
+        return B.scan_stack(block, p["layers"], x, cfg, keep=keep)
 
     def _decoder_in(self, p, batch):
         x = L.embed_tokens(p["embed"], batch["tokens"])
         return x.to(_compute_dtype(self.cfg))
 
-    @torch.no_grad()
-    def forward(self, batch):
-        """Full forward -> (logits (B, S, padded_vocab), aux)."""
+    def _forward(self, batch):
         cfg = self.cfg
         p = self.compute_params()
         if cfg.family == "encdec":
             enc_out = self._encode(p, batch)
-            x, _ = self._decode_stack(p, self._decoder_in(p, batch), enc_out)
+            x, _ = self._decode_stack(p, self._decoder_in(p, batch), enc_out,
+                                      keep=_drop)
             aux = self._zero()
         else:
             x, aux = self._backbone(p, self._embed_in(p, batch))
         x = L.rmsnorm(x, p["ln_f"].to(x.dtype), cfg.norm_eps)
         return L.unembed(p["embed"], x, cfg), aux
 
+    @torch.no_grad()
+    def forward(self, batch):
+        """Full forward -> (logits (B, S, padded_vocab), aux)."""
+        return self._forward(batch)
+
     def loss(self, batch):
-        logits, aux = self.forward(batch)
+        """Next-token cross entropy + 0.01 aux: a 0-d float32 tensor, on
+        the autograd tape when the parameters are trainable."""
+        logits, aux = self._forward(batch)
         ce = L.softmax_xent(logits, batch["labels"], self.cfg.padded_vocab)
         return ce + 0.01 * aux
 
@@ -582,6 +605,10 @@ class Model(nn.Module):
                 B.layer(p["layers"], i), x,
                 A.KVCache(k=kstack[i], v=vstack[i], pos=pos), enc_out, cfg)
         return x
+
+
+def _drop(out) -> None:
+    return None
 
 
 def _paths(tree, prefix: str = "") -> dict:
