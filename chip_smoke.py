@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--json PATH] [--passes-only | --offpath-only |
                           --sessions-only | --lod-only | --shards-only |
                           --train-only | --serve-only | --families-only |
-                          --lm-train-only]
+                          --lm-train-only | --lm-mesh-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -201,9 +201,13 @@ Phases, in order:
         rounding difference grows several-fold a layer, so at 24 layers
         decode and forward part however each is computed
      d. card against CPU: the same weights of reduced qwen1.5-0.5b under
-        float32 compute run forward, prefill and 8 decode steps on the
-        card and on the CPU: logits within rtol 1e-4 and atol 1e-4 x
-        max|logit|
+        float32 compute run forward, prefill and 8 teacher-forced decode
+        steps on the card and on the CPU (`models.parity.lm_parity`):
+        logits within rtol 1e-4 and atol 1e-4 x max|logit|, the decode
+        under float32 caches; under the model's bf16 caches each cache
+        element within one bf16 ulp (past float32 noise) and the logits
+        reported: a last-place float32 difference rounds a K/V value to
+        the other side of a bf16 boundary now and then
   11. runs after 10: LM serving for the MoE/MLA, SSM, hybrid and enc-dec
      families at full width and depth, from seed-0 weights through
      `serve.run_lm` at batch 4, prefill 512, decode 64 (the enc-dec with
@@ -264,9 +268,44 @@ Phases, in order:
         a 6-step run saving every 2 and preempted after step 4, restarted
         to 6, bit-equal to 6 uninterrupted steps (parameters and optimizer
         state)
+  13. runs after 12: the dense LM over a mesh of virtual shards of the
+     card (`distributed.sharding.Mesh` of repeated cuda:0; launches none
+     of the four kernels):
+     a. qwen1.5-0.5b at full width, float32 compute, over (data=2,
+        model=2). On seed-0 weights the forward's logits on the mesh
+        against one device, beside one device against itself with the
+        batch in two halves (reported: under the reference's init a
+        last-place difference grows several-fold a layer, as in 10c).
+        Gated on the same weights after `fan_in_attention`: 3 steps of
+        the training driver's step (AdamW on the whole batch, its lr
+        schedule) at batch 4 x 1024 on the mesh and on one device from
+        the same weights and batches: loss and grad
+        norm within 1e-5 relative, every update within 1e-3 lr plus two
+        float32 ulps where the one-device gradient exceeds 1e-2 of its
+        leaf's largest, every replica bit-equal; then bf16 compute at
+        12a's shape (batch 8 x 1024), 3 steps on each: step walls,
+        one more step's device-busy share, peaks
+     b. float32, `fan_in_attention` weights, batch 4: prefill 64
+        tokens, then 16 greedy steps from
+        fresh float32 caches of 16 (so that both model positions' blocks
+        of the sequence are written) on the mesh and on one device: logits
+        within rtol 1e-4 and atol 1e-4 x max|logit|, tokens equal, ms a
+        token; then the int8 cache (`kv_quant`), the mesh fed the
+        one-device run's greedy tokens: the int8 cache values within one
+        step; the scales, logits and argmax agreement reported
+     c. reduced qwen float32 under deterministic algorithms: 2 driver
+        steps on (2, 2), saved by a `FaultManager` under
+        build/lm_mesh_ckpt (removed after) and restored bit-equal,
+        `elastic_reshard` onto (1, 4) and (1, 1) bit-equal gathered, 2
+        more steps on each bit-equal to the same steps from the gathered
+        state placed directly
+     d. reduced qwen float32, one driver step over (pod=2, data=2,
+        model=2) under `fsdp_over_pod` off and on, against one device
+        within 13a's gates
   5. one {"kernels": [...]} line (K1's and K2's rows also carry phase 8's
      shard_launches, shard_ms and shard_bound_ms, and phase 9d's
-     train_launches; K1's also phase 10a's driver_launches), the card
+     train_launches; K1's also phase 10a's driver_launches; every row
+     phase 13's lm_mesh_launches, 0), the card
      line, and as the last line {"ok": true, "device": {...}}
 
 Exits non-zero without printing a result when CUDA is unavailable or any
@@ -276,7 +315,8 @@ last line; `--sessions-only` runs phases 1 and 4g; `--lod-only` runs
 phases 1 and 7; `--shards-only` runs phases 1 and 8 (rendering 8d's
 plain frames itself); `--train-only` runs phases 1 and 9; `--serve-only`
 runs phases 1 and 10; `--families-only` phases 1 and 11; `--lm-train-only`
-phases 1 and 12; `--offpath-only` runs phase 1, the 1024² setup,
+phases 1 and 12; `--lm-mesh-only` phases 1 and 13; `--offpath-only` runs
+phase 1, the 1024² setup,
 phase 6a and K3 on the 1024² frame's lists, and prints their times on
 the line before the card line and the contract's last line. A copy of this script placed
 at the root of another commit's tree (`git archive`) times that commit's
@@ -315,6 +355,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # matmuls unless this is set before the first one.
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
@@ -350,6 +391,11 @@ from repro_torch.core.coherence import camera_delta  # noqa: E402
 from repro_torch.distributed import (FaultConfig, FaultManager,  # noqa: E402
                                      ShardDropInjector,
                                      render_with_shard_recovery)
+from repro_torch.distributed import sharding as D  # noqa: E402
+from repro_torch.distributed.fault import elastic_reshard  # noqa: E402
+from repro_torch.distributed.sharding import Mesh, Sharded  # noqa: E402
+from repro_torch.models import pspec  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serving import (HD_SCENE_KW, AdmissionRejected,  # noqa: E402
                                  RenderEngine, RenderRequest, Scheduler,
                                  Telemetry, hd1080_cameras, hd1080_engine,
@@ -364,6 +410,7 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import tokens as lm_data  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import blocks as blocks_mod  # noqa: E402
+from repro_torch.models import parity  # noqa: E402
 from repro_torch.models import mamba2 as mamba_mod  # noqa: E402
 from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -3083,10 +3130,11 @@ def phase_lm_self(model) -> dict:
 
 
 def card_vs_cpu_logits(dev) -> dict:
-    """Reduced qwen1.5-0.5b under float32 compute: forward, prefill and 8
-    decode steps of the same weights on `dev` and on the CPU. Returns the
-    largest |Δ| over max|logit| of each, checked against rtol 1e-4 and
-    atol 1e-4 x max|logit|."""
+    """Reduced qwen1.5-0.5b under float32 compute: the same weights on `dev`
+    and on the CPU through `models.parity.lm_parity` (forward, prefill, 8
+    teacher-forced decode steps under float32 caches at rtol 1e-4 and atol
+    1e-4 x max|logit|; under the model's bf16 caches each cache element
+    within one bf16 ulp, their logits reported). Returns {label: error}."""
     cfg = dataclasses.replace(reduced(get_arch("qwen1.5-0.5b")),
                               dtype="float32", attn_chunk=8)
     cpu = Model(cfg, device="cpu", seed=0)
@@ -3098,19 +3146,9 @@ def card_vs_cpu_logits(dev) -> dict:
                            generator=gen)
     toks = torch.randint(0, cfg.vocab_size, (2, CARD_CPU_DECODE),
                          generator=gen)
-    out = {}
-    for label, fn in (
-            ("forward", lambda m, d: m.forward(dict(tokens=prompt.to(d)))[0]),
-            ("prefill", lambda m, d: m.prefill(dict(tokens=prompt.to(d)))[0]),
-            ("decode", lambda m, d: decode_tokens(m, toks.to(d))[0])):
-        want, got = fn(cpu, "cpu"), fn(card, dev).cpu()
-        scale = float(want.abs().max())
-        err = (got - want).abs()
-        check(bool((err <= 1e-4 * scale + 1e-4 * want.abs()).all()),
-              f"card vs CPU {label}: max |Δ| {float(err.max())} "
-              f"(max|logit| {scale})")
-        out[label] = float(err.max()) / scale
-    return out
+    result = parity.lm_parity(card, cpu, prompt, toks, dev, "cpu")
+    check(not parity.failures(result), f"card vs CPU: {result}")
+    return {k: e for k, (e, _) in result.items()}
 
 
 def phase_lm_card_vs_cpu() -> dict:
@@ -3118,8 +3156,11 @@ def phase_lm_card_vs_cpu() -> dict:
     out = card_vs_cpu_logits(torch.device("cuda"))
     log(f"[serve 10d] reduced qwen1.5-0.5b, float32: max |Δ| / max|logit| "
         f"card vs CPU forward {out['forward']:.2e}, prefill "
-        f"{out['prefill']:.2e}, 8 decode steps {out['decode']:.2e} "
-        f"(bound rtol 1e-4, atol 1e-4 x max|logit|)")
+        f"{out['prefill']:.2e}, 8 decode steps under float32 caches "
+        f"{out['decode_f32_cache']:.2e} (bound rtol 1e-4, atol 1e-4 x "
+        f"max|logit|); under bf16 caches {out['decode_model_cache']:.2e} "
+        f"(reported), cache elements within {out['caches']:.0f} bf16 ulp "
+        "(bound 1)")
     return out
 
 
@@ -3859,6 +3900,448 @@ def phase_lm_train() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the dense LM over a mesh of virtual shards
+# ---------------------------------------------------------------------------
+
+LM_MESH_ARCH = "qwen1.5-0.5b"
+LM_MESH_SHAPE = (2, 2)               # (data, model): 4 virtual shards
+LM_MESH_F32 = dict(batch=4, seq=1024, steps=3)       # 13a, float32
+LM_MESH_BF16 = dict(batch=8, seq=1024, steps=3)      # 13a, 12a's shape
+LM_MESH_SERVE = dict(batch=4, prefill=64, decode=16, seed=23)   # 13b
+LM_MESH_RESUME = dict(batch=4, seq=32, steps=2)      # 13c, reduced
+LM_MESH_SEED = 24                    # 13b-13d prompts and batches
+
+
+def lm_mesh(shape, dev, names=("data", "model")):
+    """A mesh of `prod(shape)` virtual shards of `dev`."""
+    flat = [dev] * math.prod(shape)
+    for n in reversed(shape[1:]):
+        flat = [flat[i:i + n] for i in range(0, len(flat), n)]
+    return Mesh(flat, names)
+
+
+def lm_mesh_args(run: dict, cfg) -> argparse.Namespace:
+    """The training driver's arguments for `run`: its AdamW schedule over
+    run["steps"] steps (warmup 1) and its whole-batch step."""
+    return train_driver.parser().parse_args(
+        ["--arch", cfg.name, "--batch", str(run["batch"]), "--seq",
+         str(run["seq"]), "--steps", str(run["steps"])])
+
+
+def replicas_equal(tree) -> bool:
+    """Every piece of every `Sharded` leaf bit-equal to the first holder
+    of its block."""
+    return all(torch.equal(t.pieces[i], t.pieces[g[0]])
+               for t in ckpt.flatten(tree) if isinstance(t, Sharded)
+               for g in t.sharding.replica_groups() for i in g[1:])
+
+
+def update_error(before, after, want_before, want_after, grad, lr) -> float:
+    """The update gate of 12c and `tests/test_torch_lm_train.py` over flat
+    dicts of whole tensors: the worst |Δ update| / lr past two float32
+    ulps of the parameter, over the elements whose gradient `grad`
+    exceeds 1e-2 of its leaf's largest."""
+    worst = 0.0
+    for k, g in grad.items():
+        sel = g.abs() > 1e-2 * g.abs().max()
+        d = ((after[k] - before[k]) - (want_after[k] - want_before[k])).abs()
+        mag = after[k].abs()
+        ulp = torch.nextafter(mag, torch.full_like(mag, math.inf)) - mag
+        err = (d - 2 * ulp)[sel]
+        if err.numel():
+            worst = max(worst, float(err.max()) / lr)
+    return worst
+
+
+def mesh_and_one(cfg, mesh, dev, label, seed=0, fan_in=False) -> tuple:
+    """(one-device model, the model on `mesh`) of `cfg` from one draw,
+    the mesh's placed from the same seed and checked bit-equal; with
+    `fan_in`, both then hold the one-device model's weights after
+    `fan_in_attention`."""
+    one = Model(cfg, device=dev, seed=seed)
+    sh = Model(cfg, device=dev, seed=seed, mesh=mesh)
+    same = all(torch.equal(sh.state_dict()[k], v)
+               for k, v in one.state_dict().items())
+    check(same, f"{label}: the sharded model's weights differ from the "
+          "one-device model's")
+    if fan_in:
+        fan_in_attention(one)
+        sh.load_state_dict(one.state_dict())
+    return one, sh
+
+
+def mesh_steps_against_one(cfg, mesh, run, dev, label, seed=0,
+                           fan_in=False) -> dict:
+    """`run["steps"]` driver steps (AdamW, whole batch) of `cfg` on `mesh`
+    and on one device from the same weights (`mesh_and_one`) and batches:
+    per step the loss and grad norm (relative |Δ|), the update gate
+    (`update_error`, the gradient read from the one-device run's first
+    moments) and the replicas; step walls of both. Each step after the
+    first starts the mesh from the one-device run's parameters and
+    moments (placed by `opt_shardings`), so that every step's update is
+    held as one step from one state (12c's criterion), not two
+    trajectories that part by their earlier roundings."""
+    args = lm_mesh_args(run, cfg)
+    opt_cfg = train_driver.opt_config(args, cfg)
+    comp = train_driver.CompressionConfig()
+    one, sh = mesh_and_one(cfg, mesh, dev, label, seed, fan_in)
+    steps = [train_driver.make_step(m, opt_cfg, comp) for m in (one, sh)]
+    states = [adamw.init(m.params(), opt_cfg) for m in (one, sh)]
+    shape = ShapeConfig("custom", "train", run["seq"], run["batch"])
+    rows, walls = [], ([], [])
+    o_shard = lm_steps.opt_shardings(sh, mesh)
+    for i in range(run["steps"]):
+        batch = lm_data.synthetic_batch(cfg, shape, i, device=dev)
+        if i:
+            sh.load_state_dict(one.state_dict())
+            states[1] = D.shard_tree(states[0], o_shard)
+        before = [{k: v.clone() for k, v in m.state_dict().items()}
+                  for m in (one, sh)]
+        m_prev = {k: v.clone() for k, v in pspec_leaves(states[0].m)}
+        mets = []
+        for j, m in enumerate((one, sh)):
+            (states[j], met), ms = sync_wall_ms(
+                lambda j=j: steps[j](states[j], batch))
+            walls[j].append(ms)
+            mets.append({k: float(v) for k, v in met.items()})
+        grad = {k: (v - opt_cfg.b1 * m_prev[k]) / (1 - opt_cfg.b1)
+                for k, v in pspec_leaves(states[0].m)}
+        err = update_error(before[1], sh.state_dict(), before[0],
+                           one.state_dict(), grad, mets[0]["lr"])
+        rel = {k: abs(mets[1][k] - mets[0][k]) / abs(mets[0][k])
+               for k in ("loss", "grad_norm")}
+        reps = replicas_equal(sh.params()) and replicas_equal(states[1])
+        rows.append(dict(loss=mets[1]["loss"], loss_one=mets[0]["loss"],
+                         rel=rel, update_err_lr=err, replicas=reps))
+        check(rel["loss"] <= 1e-5 and rel["grad_norm"] <= 1e-5,
+              f"{label} step {i}: loss/grad norm relative |Δ| {rel}")
+        check(err <= 1e-3, f"{label} step {i}: update |Δ| {err:.2e} lr")
+        check(reps, f"{label} step {i}: replicas differ")
+        del before, m_prev, grad
+    return dict(rows=rows, mesh_ms=walls[1], one_ms=walls[0],
+                models=(one, sh), states=states)
+
+
+def pspec_leaves(tree) -> list:
+    return [(k, v.gather() if isinstance(v, Sharded) else v)
+            for k, v in leaves(tree)]
+
+
+def phase_lm_mesh_train(dev=torch.device("cuda")) -> dict:
+    """13a: full-width qwen over 4 virtual shards (module docstring)."""
+    mesh = lm_mesh(LM_MESH_SHAPE, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_arch(LM_MESH_ARCH), dtype="float32")
+    chaos = seed0_spread(cfg, mesh, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = mesh_steps_against_one(cfg, mesh, LM_MESH_F32, dev, "lm-mesh 13a",
+                                 fan_in=True)
+    f32_peak = torch.cuda.max_memory_allocated()
+    rows = res.pop("rows")
+    del res
+    log(f"[lm-mesh 13a] {cfg.name} full width, float32, batch "
+        f"{LM_MESH_F32['batch']} x {LM_MESH_F32['seq']}, seed-0 weights "
+        f"(the reference's init) forward: logits mesh vs one device "
+        f"{chaos['mesh_vs_one']:.2e} x max|logit|, one device against itself"
+        f" with the batch in two halves {chaos['split_vs_whole']:.2e}, loss "
+        f"rel {chaos['loss_rel']:.2e} (reported: a last-place difference "
+        f"grows several-fold a layer, 10c); gated on the same weights with "
+        f"`fan_in_attention`: driver steps (AdamW, "
+        f"whole batch) over (data=2, model=2) virtual shards vs one device: "
+        + "; ".join(f"step {i}: loss {r['loss']:.6f} / {r['loss_one']:.6f} "
+                    f"(rel {r['rel']['loss']:.1e}), grad norm rel "
+                    f"{r['rel']['grad_norm']:.1e}, updates {r['update_err_lr']:.1e}"
+                    f" lr past two ulps, replicas bit-equal {r['replicas']}"
+                    for i, r in enumerate(rows))
+        + f" (bounds 1e-5, 1e-5, 1e-3 lr); peak {f32_peak / 1e9:.2f} GB "
+        f"({card_line()})")
+    torch.cuda.empty_cache()
+
+    # bf16 at 12a's shape: the sharded step's cost on one card.
+    cfg = get_arch(LM_MESH_ARCH)
+    run = LM_MESH_BF16
+    args = lm_mesh_args(run, cfg)
+    opt_cfg = train_driver.opt_config(args, cfg)
+    shape = ShapeConfig("custom", "train", run["seq"], run["batch"])
+    timing = {}
+    for label, m_ in (("one", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev, seed=0, mesh=m_)
+        step = train_driver.make_step(model, opt_cfg,
+                                      train_driver.CompressionConfig())
+        state = adamw.init(model.params(), opt_cfg)
+        walls, losses = [], []
+        for i in range(run["steps"]):
+            batch = lm_data.synthetic_batch(cfg, shape, i, device=dev)
+            (state, met), ms = sync_wall_ms(lambda: step(state, batch))
+            walls.append(ms)
+            losses.append(float(met["loss"]))
+        wall = sync_wall_ms(lambda: step(state, batch)[1])[1]
+        busy, top = device_profile(lambda: step(state, batch)[1])
+        timing[label] = dict(step_ms=walls, median_ms=sorted(walls[1:])[
+            (len(walls) - 1) // 2], losses=losses, busy_ms=busy,
+            wall_ms=wall, busy_share=busy / wall, top_kernels=top[:5],
+            peak_bytes=torch.cuda.max_memory_allocated())
+        check(all(math.isfinite(x) for x in losses),
+              f"lm-mesh 13a bf16 {label}: losses {losses}")
+        del model, step, state
+    one, sh = timing["one"], timing["mesh"]
+    log(f"[lm-mesh 13a] {cfg.name} bf16 compute, batch {run['batch']} x "
+        f"{run['seq']}, {run['steps']} driver steps: one device step walls "
+        f"{[round(x, 1) for x in one['step_ms']]} ms, (2, 2) virtual shards "
+        f"{[round(x, 1) for x in sh['step_ms']]} ms; warm median "
+        f"{sh['median_ms']:.1f} vs {one['median_ms']:.1f} ms "
+        f"({100 * (sh['median_ms'] / one['median_ms'] - 1):+.1f}%); losses "
+        f"{[round(x, 4) for x in sh['losses']]} vs "
+        f"{[round(x, 4) for x in one['losses']]}; one more step "
+        f"{sh['wall_ms']:.1f} ms wall, {sh['busy_ms']:.1f} ms device-busy "
+        f"({100 * sh['busy_share']:.1f}%) vs {one['wall_ms']:.1f} / "
+        f"{one['busy_ms']:.1f} ms ({100 * one['busy_share']:.1f}%); peak "
+        f"{sh['peak_bytes'] / 1e9:.2f} vs {one['peak_bytes'] / 1e9:.2f} GB; "
+        f"top kernels on the mesh {[(k, round(v, 2)) for k, v in sh['top_kernels']]}"
+        f" ({card_line()})")
+    return dict(float32=dict(rows=rows, peak_bytes=f32_peak,
+                             seed0=chaos), bf16=timing)
+
+
+def seed0_spread(cfg, mesh, dev) -> dict:
+    """On seed-0 weights: the float32 forward's logits on the mesh against
+    one device, and one device against itself with the batch in two
+    halves (another GEMM shape: the spread of the sums' order alone),
+    each over max|logit|; the losses' relative |Δ|."""
+    one, sh = mesh_and_one(cfg, mesh, dev, "lm-mesh 13a seed 0")
+    run = LM_MESH_F32
+    batch = lm_data.synthetic_batch(cfg, ShapeConfig(
+        "custom", "train", run["seq"], run["batch"]), 0, device=dev)
+    half = run["batch"] // 2
+    with torch.no_grad():
+        want = one.forward(batch)[0]
+        scale = float(want.abs().max())
+        got = sh.forward(batch)[0]
+        mesh_err = float((got - want).abs().max()) / scale
+        del got
+        split = torch.cat([one.forward({k: v[:half] for k, v in
+                                        batch.items()})[0],
+                           one.forward({k: v[half:] for k, v in
+                                        batch.items()})[0]])
+        split_err = float((split - want).abs().max()) / scale
+        del split, want
+        l1, l2 = float(one.loss(batch)), float(sh.loss(batch))
+    return dict(mesh_vs_one=mesh_err, split_vs_whole=split_err,
+                loss_rel=abs(l1 - l2) / abs(l1))
+
+
+def greedy(model, prompt, n: int, caches, forced=None) -> tuple:
+    """Prefill `prompt`, then `n` greedy decode steps from `caches` (fed
+    `forced` tokens instead where given): (prefill logits, step logits
+    (B, n, V), tokens (B, n), caches, ms per step)."""
+    first = model.prefill(dict(tokens=prompt))[0]
+    tok = torch.argmax(first, -1)[:, None]
+    outs, toks, ms = [], [], []
+    for i in range(n):
+        feed = tok if forced is None else forced[:, i:i + 1]
+        (lg, caches), t = sync_wall_ms(lambda: model.decode_step(caches,
+                                                                 feed))
+        tok = torch.argmax(lg, -1)[:, None]
+        outs.append(lg)
+        toks.append(tok)
+        ms.append(t)
+    return (first, torch.stack(outs, 1), torch.cat(toks, 1), caches, ms)
+
+
+def phase_lm_mesh_serve(dev=torch.device("cuda")) -> dict:
+    """13b: prefill and greedy decode over the mesh (module docstring)."""
+    mesh = lm_mesh(LM_MESH_SHAPE, dev)
+    run = LM_MESH_SERVE
+    cfg = dataclasses.replace(get_arch(LM_MESH_ARCH), dtype="float32")
+    one, sh = mesh_and_one(cfg, mesh, dev, "lm-mesh 13b", fan_in=True)
+    gen = torch.Generator(device="cpu").manual_seed(run["seed"])
+    prompt = torch.randint(0, cfg.vocab_size, (run["batch"], run["prefill"]),
+                           generator=gen).to(dev)
+    n, b = run["decode"], run["batch"]
+    # Caches of the decode's length, so that every model position's block
+    # of the sequence is written.
+    length = n
+    out = {}
+    w = greedy(one, prompt, n, parity.float32_caches(
+        one.init_caches(b, length)))
+    g = greedy(sh, prompt, n, parity.float32_caches(
+        sh.init_caches(b, length)))
+    errs = dict(prefill=parity.logit_error(g[0], w[0]),
+                decode=parity.logit_error(g[1], w[1]))
+    same = torch.equal(g[2], w[2])
+    check(all(ok for _, ok in errs.values()) and same,
+          f"lm-mesh 13b float32: logits {errs}, tokens equal {same}")
+    out["float32"] = dict(errors={k: e for k, (e, _) in errs.items()},
+                          tokens_equal=same,
+                          ms_per_token=float(np.median(g[4][1:])),
+                          one_ms_per_token=float(np.median(w[4][1:])))
+    # The int8 cache: the mesh decodes the one-device run's greedy tokens.
+    for m in (one, sh):
+        m.cfg = dataclasses.replace(cfg, kv_quant=True)
+    w8 = greedy(one, prompt, n, one.init_caches(b, length))
+    forced = torch.cat([torch.argmax(w8[0], -1)[:, None], w8[2][:, :-1]], 1)
+    g8 = greedy(sh, prompt, n, sh.init_caches(b, length), forced=forced)
+    pairs = list(zip(ckpt.flatten(g8[3]["kv"]), ckpt.flatten(w8[3]["kv"])))
+    steps = max(parity.cache_steps(x, y) for x, y in pairs
+                if y.dtype == torch.int8)
+    # The scales (amax / 127 of each written K/V row) follow the K/V
+    # values: once an earlier value has rounded to the other int8 step,
+    # the later rows differ by more than float32 noise. Reported.
+    scale_err = max(float((x.gather() - y).abs().max() / y.abs().max())
+                    for x, y in pairs if y.dtype == torch.float32)
+    agree = float((g8[2] == w8[2]).float().mean())
+    err8 = parity.logit_error(g8[1], w8[1])[0]
+    check(steps <= 1, f"lm-mesh 13b int8: caches {steps} steps apart")
+    out["int8"] = dict(cache_steps=steps, scale_err=scale_err,
+                       logits_err=err8,
+                       argmax_agreement=agree,
+                       ms_per_token=float(np.median(g8[4][1:])),
+                       one_ms_per_token=float(np.median(w8[4][1:])))
+    log(f"[lm-mesh 13b] {cfg.name} float32 (`fan_in_attention`), batch "
+        f"{b}, prefill "
+        f"{run['prefill']}, {n} greedy steps from fresh caches of {length} "
+        f"(each model position's block written) "
+        f"over (2, 2) virtual shards vs one device: float32 caches: "
+        f"max |Δ| / max|logit| prefill {errs['prefill'][0]:.2e}, decode "
+        f"{errs['decode'][0]:.2e} (bound 1e-4), tokens equal {same}; "
+        f"{out['float32']['ms_per_token']:.1f} vs "
+        f"{out['float32']['one_ms_per_token']:.1f} ms a token. int8 cache "
+        f"(the mesh fed the one-device run's greedy tokens): cache elements "
+        f"within {steps:.0f} step (bound 1), scales {scale_err:.2e} of "
+        f"their max (reported), logits {err8:.2e} x "
+        f"max|logit|, argmax agreement {agree:.3f}; "
+        f"{out['int8']['ms_per_token']:.1f} vs "
+        f"{out['int8']['one_ms_per_token']:.1f} ms a token ({card_line()})")
+    return out
+
+
+def phase_lm_mesh_resume(dev=torch.device("cuda")) -> dict:
+    """13c: save on (2, 2), restore, `elastic_reshard` onto (1, 4) and
+    (1, 1) (module docstring); the checkpoint under build/lm_mesh_ckpt,
+    removed after."""
+    root = os.path.join(ROOT, "build", "lm_mesh_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    run = LM_MESH_RESUME
+    cfg = dataclasses.replace(reduced(get_arch(LM_MESH_ARCH)),
+                              dtype="float32")
+    opt_cfg = train_driver.opt_config(lm_mesh_args(
+        dict(run, steps=2 * run["steps"]), cfg), cfg)
+    comp = train_driver.CompressionConfig()
+    shape = ShapeConfig("custom", "train", run["seq"], run["batch"])
+    batches = [lm_data.synthetic_batch(cfg, shape, LM_MESH_SEED + i,
+                                       device=dev)
+               for i in range(2 * run["steps"])]
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    try:
+        src = Model(cfg, device=dev, seed=0, mesh=lm_mesh((2, 2), dev))
+        step = train_driver.make_step(src, opt_cfg, comp)
+        state = adamw.init(src.params(), opt_cfg)
+        for b in batches[:run["steps"]]:
+            state, _ = step(state, b)
+        fm = FaultManager(FaultConfig(ckpt_dir=root, save_every=run["steps"],
+                                      install_sigterm_hook=False))
+        fm.maybe_save(run["steps"], (src.params(), state))
+        gathered = (src.state_dict(), D.gather_tree(state))
+        (params, restored), at = fm.restore_latest(
+            (pspec.tree_map(lambda t: t.gather(), src.params()),
+             D.gather_tree(state)))
+        check(at == run["steps"], f"lm-mesh 13c: restored step {at}")
+        saved = [*gathered[0].items()]
+        flat_params = dict(leaves(params))
+        check(all(torch.equal(flat_params[k], v) for k, v in saved)
+              and all(torch.equal(a, b) for a, b in zip(
+                  ckpt.flatten(restored), ckpt.flatten(gathered[1]))),
+              "lm-mesh 13c: the restored state differs from the saved one")
+        for shp in ((1, 4), (1, 1)):
+            mesh = lm_mesh(shp, dev)
+            specs = pspec.partition_specs(src.specs(), mesh)
+            p2 = elastic_reshard(params, mesh, specs)
+            s2 = elastic_reshard(restored, mesh, adamw.OptState(
+                m=specs, v=specs, step=()))
+            whole = [x.gather() if isinstance(x, Sharded) else x
+                     for x in ckpt.flatten((p2, s2))]
+            check(all(torch.equal(a, b) for a, b in zip(
+                whole, ckpt.flatten((params, restored)))),
+                f"lm-mesh 13c {shp}: resharded state differs")
+            finals = []
+            for how in ("resharded", "gathered"):
+                m = Model(cfg, device=dev, seed=1, mesh=mesh)
+                if how == "resharded":
+                    m.load_state_dict({k: t.gather() for k, t in
+                                       leaves(p2)})
+                    st = s2 if mesh.size > 1 else D.gather_tree(s2)
+                else:
+                    m.load_state_dict(gathered[0])
+                    st = gathered[1] if mesh.size == 1 else D.shard_tree(
+                        gathered[1], lm_steps.opt_shardings(m, mesh))
+                s = train_driver.make_step(m, opt_cfg, comp)
+                for b in batches[run["steps"]:]:
+                    st, _ = s(st, b)
+                finals.append([x.gather() if isinstance(x, Sharded) else x
+                               for x in ckpt.flatten((m.params(), st))])
+            same = all(torch.equal(a, b) for a, b in zip(*finals))
+            check(same, f"lm-mesh 13c {shp}: the steps after the reshard "
+                  "differ from the same steps from the gathered state")
+            out[f"{shp[0]}x{shp[1]}"] = dict(bit_equal=same)
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[lm-mesh 13c] reduced {cfg.name} float32, deterministic "
+        f"algorithms: {run['steps']} steps on (2, 2), saved by a "
+        f"FaultManager and restored bit-equal, elastic_reshard onto (1, 4) "
+        f"and (1, 1) bit-equal when gathered, {run['steps']} more steps on "
+        f"each bit-equal to the same steps from the gathered state: {out}; "
+        f"build/lm_mesh_ckpt removed {not os.path.exists(root)}")
+    return out
+
+
+def phase_lm_mesh_pod(dev=torch.device("cuda")) -> dict:
+    """13d: one step over (pod=2, data=2, model=2) virtual shards of
+    reduced qwen, `fsdp_over_pod` off and on, against one device."""
+    out = {}
+    mesh = lm_mesh((2, 2, 2), dev, ("pod", "data", "model"))
+    for fop in (False, True):
+        cfg = dataclasses.replace(reduced(get_arch(LM_MESH_ARCH)),
+                                  dtype="float32", fsdp_over_pod=fop)
+        res = mesh_steps_against_one(
+            cfg, mesh, dict(batch=8, seq=64, steps=1), dev,
+            f"lm-mesh 13d fsdp_over_pod={fop}", seed=LM_MESH_SEED)
+        out[f"fsdp_over_pod={fop}"] = res["rows"][0]
+    log(f"[lm-mesh 13d] reduced {LM_MESH_ARCH} float32, batch 8 x 64, one "
+        f"driver step over (pod=2, data=2, model=2) virtual shards vs one "
+        f"device: " + "; ".join(
+            f"{k}: loss rel {r['rel']['loss']:.1e}, grad norm rel "
+            f"{r['rel']['grad_norm']:.1e}, updates {r['update_err_lr']:.1e} "
+            f"lr, replicas bit-equal {r['replicas']}" for k, r in out.items())
+        + " (bounds 1e-5, 1e-5, 1e-3 lr)")
+    return out
+
+
+def phase_lm_mesh() -> dict:
+    """Phase 13: 13a-13d; none of the four kernels is launched."""
+    reset_launches()
+    prtu.dense_launches = render.full_launches = 0
+    out = dict(train=timed_phase("lm-mesh 13a", phase_lm_mesh_train))
+    torch.cuda.empty_cache()
+    out["serve"] = timed_phase("lm-mesh 13b", phase_lm_mesh_serve)
+    torch.cuda.empty_cache()
+    out["resume"] = timed_phase("lm-mesh 13c", phase_lm_mesh_resume)
+    out["pod"] = timed_phase("lm-mesh 13d", phase_lm_mesh_pod)
+    launches = dict(launches_now(), prtu_cat_mask=prtu.dense_launches,
+                    blend_tiles=render.full_launches)
+    check(not any(launches.values()),
+          f"lm-mesh: the LM's mesh path launched kernels {launches}")
+    out["launches"] = launches
+    return out
+
+
 def write_json(path, summary: dict) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -3975,6 +4458,15 @@ def lm_train_only(summary: dict, json_path) -> int:
     return 0
 
 
+def lm_mesh_only(summary: dict, json_path) -> int:
+    """Phase 13 alone. Prints the card line and the contract's last line."""
+    summary["lm_mesh"] = timed_phase("lm-mesh", phase_lm_mesh)
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
 def ok_line() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4017,6 +4509,9 @@ def main() -> int:
                         help="run only the build and phase 12 (LM training "
                         "at full width, the families card against CPU, "
                         "resume)")
+    parser.add_argument("--lm-mesh-only", action="store_true",
+                        help="run only the build and phase 13 (the dense "
+                        "LM over a mesh of virtual shards of the card)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4049,6 +4544,8 @@ def main() -> int:
         return families_only(summary, args.json)
     if args.lm_train_only:
         return lm_train_only(summary, args.json)
+    if args.lm_mesh_only:
+        return lm_mesh_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -4115,6 +4612,8 @@ def main() -> int:
     summary["families"] = timed_phase("families", phase_families)
     torch.cuda.empty_cache()
     summary["lm_train"] = timed_phase("lm-train", phase_lm_train)
+    torch.cuda.empty_cache()
+    summary["lm_mesh"] = timed_phase("lm-mesh", phase_lm_mesh)
     shard_rows = {"prtu_entry_cat_mask": summary["shards"]["kernels"]["k1"],
                   "blend_tiles_fused": summary["shards"]["kernels"]["k2"]}
 
@@ -4143,6 +4642,8 @@ def main() -> int:
                 shard_ms=shard_rows[kname]["ms"],
                 shard_bound_ms=shard_rows[kname]["bound_ms"],
                 train_launches=summary["train"]["serve"]["launches"][kname])
+        kernels[-1]["lm_mesh_launches"] = summary["lm_mesh"]["launches"][
+            kname]
         if kname == "prtu_entry_cat_mask":
             # Phase 10a: the render driver's run.
             kernels[-1].update(driver_launches=summary["driver"]["render"][

@@ -12,7 +12,9 @@ Leaves are numbered in the order `jax.tree.flatten` gives the reference's
 trees: dataclass fields in declaration order, NamedTuple fields, list and
 tuple items in order, dict values by sorted key; None holds no leaf. So a
 checkpoint written by either package restores in the other, bf16 leaves
-included (stored as their 16 bits, as the reference's are).
+included (stored as their 16 bits, as the reference's are). A leaf
+placed over a mesh (`distributed.sharding.Sharded`) is saved gathered,
+and restored into a `Sharded` leaf of `tree_like` placed as that leaf.
 """
 from __future__ import annotations
 
@@ -81,7 +83,15 @@ def unflatten(tree_like, leaves) -> object:
 _BF16_BITS = np.dtype("V2")
 
 
+def _is_sharded(x) -> bool:
+    # Imported here: `distributed` imports this module.
+    from repro_torch.distributed.sharding import Sharded
+    return isinstance(x, Sharded)
+
+
 def _to_numpy(x) -> np.ndarray:
+    if _is_sharded(x):
+        x = x.gather()
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
@@ -91,7 +101,7 @@ def _to_numpy(x) -> np.ndarray:
 
 
 def _dtype_name(x, arr: np.ndarray) -> str:
-    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+    if getattr(x, "dtype", None) == torch.bfloat16:
         return "bfloat16"
     return str(arr.dtype)
 
@@ -161,6 +171,8 @@ def restore(ckpt_dir: str, step: int, tree_like):
                              f"{arr.shape}")
         if isinstance(old, torch.Tensor):
             arr = _to_tensor(arr, old)
+        elif _is_sharded(old):
+            arr = type(old).of(_to_tensor(arr, old.pieces[0]), old.sharding)
         new.append(arr)
     return unflatten(tree_like, new)
 

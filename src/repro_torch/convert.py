@@ -15,6 +15,10 @@ with scales, MLA latents, SSM states, enc-dec outputs);
 `lm_batch_from_numpy` a training batch.
 bfloat16 arrays (numpy's `ml_dtypes` bfloat16) cross bit for bit; going
 back, a bf16 tensor becomes a float32 array of the same values (exact).
+Over a mesh: a `Model` on a mesh places the state_dict it loads, and the
+`*_to_numpy` functions gather `distributed.sharding.Sharded` leaves; an
+optimizer state from numpy is placed by `distributed.fault.
+elastic_reshard` with `launch.steps.opt_shardings`' specs.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch
 from repro_torch.core.camera import Camera
 from repro_torch.core.gaussians import GaussianScene, Projected
 from repro_torch.core.training import TrainState
+from repro_torch.distributed.sharding import Sharded
 from repro_torch.lod.build import LODScene
 from repro_torch.models.pspec import tree_map
 
@@ -104,7 +109,9 @@ def lm_params_from_numpy(tree: Mapping, device="cpu") -> dict:
     return {k: _t(v, device) for k, v in _flat(tree)}
 
 
-def _np(t: torch.Tensor) -> np.ndarray:
+def _np(t) -> np.ndarray:
+    if isinstance(t, Sharded):
+        t = t.gather()
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 

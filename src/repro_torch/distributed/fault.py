@@ -17,8 +17,11 @@ the host side.
                                under a bit-parity gate, so the frame
                                completes instead of failing.
 
-Elastic resharding (re-placing a checkpoint's leaves over another mesh)
-waits for the sharded LM substrate, whose leaves it places.
+  elastic_reshard            — re-place a host-resident (or gathered)
+                               tree onto another mesh by its specs: the
+                               elastic-scaling path after a node is lost
+                               or gained (restore on the surviving
+                               topology, re-shard, continue).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.distributed import sharding as D
 
 
 @dataclasses.dataclass
@@ -224,3 +228,19 @@ def render_with_shard_recovery(plan, scene, camera, *, injector,
     counters["tiles_recovered"] = torch.tensor(float(lost.numel()), **f32)
     return recovered, counters, ShardRecoveryReport(
         tuple(dropped), int(lost.numel()), True)
+
+
+def elastic_reshard(tree, target_mesh, spec_tree):
+    """`tree` placed onto `target_mesh`: each tensor leaf (a `Sharded` one
+    gathered first) becomes a `Sharded` by the spec at its place in
+    `spec_tree` (mesh axes per dimension, as `models.pspec.
+    partition_specs` gives them). A 0-d tensor (an optimizer's step) is
+    the controller's: it goes to the mesh's primary device. Other leaves
+    are kept."""
+    def place(x, spec):
+        if isinstance(x, D.Sharded):
+            x = x.gather()
+        if not isinstance(x, torch.Tensor):
+            return x
+        return D.place(x, D.NamedSharding(target_mesh, tuple(spec)))
+    return D.map_with(place, tree, spec_tree)

@@ -130,10 +130,11 @@ def serve_render(args) -> int:
     return 0
 
 
-def lm_model(args):
+def lm_model(args, mesh=None):
     """The driver's model: `--arch` (reduced under `--reduced`, its
     parameters held in `--param-dtype` where given) with weights drawn
-    from seed 0 on `--device`."""
+    from seed 0 on `--device`, placed on `mesh` (default the one-device
+    mesh of `--device`)."""
     from repro_torch.configs import get_arch, reduced as reduce_cfg
     from repro_torch.models.model import Model
 
@@ -143,7 +144,8 @@ def lm_model(args):
     if args.param_dtype:
         cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
     dev = torch.device(args.device)
-    return Model(cfg, device=dev, seed=0, mesh=make_local_mesh(dev))
+    return Model(cfg, device=dev, seed=0,
+                 mesh=mesh or make_local_mesh(dev))
 
 
 def lm_batch(cfg, b: int, s: int, device) -> dict:

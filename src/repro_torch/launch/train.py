@@ -13,8 +13,11 @@ batch (no microbatches), applies `--compress` with error feedback, saves
 with the optimizer's step set to it, and flags straggler steps. The data
 is `data.tokens.synthetic_batch` of (seed 0, step), so a resumed run
 sees the batches an uninterrupted one would. `--production-mesh` and
-`--multi-pod` need the LM's sharding rules and raise until the LM mesh
-slice brings them.
+`--multi-pod` build `launch.mesh.make_production_mesh` (16 x 16, or 2 x
+16 x 16 devices) over the visible CUDA devices, which raises ValueError
+with the count on a machine with fewer; on such a mesh the model is
+placed by the sharding rules, the step runs sharded, and checkpoints
+hold the gathered state.
 """
 from __future__ import annotations
 
@@ -30,9 +33,11 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import tokens as data
 from repro_torch.distributed.fault import (FaultConfig, FaultManager,
                                            StragglerMonitor)
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.serve import lm_model
-from repro_torch.launch.steps import make_train_step, moment_dtype
-from repro_torch.models.model import Model
+from repro_torch.launch.steps import (_tensors, make_train_step,
+                                     moment_dtype)
+from repro_torch.models.model import Model, is_sharded
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import (CompressionConfig, apply_tree,
                                            init_residuals)
@@ -60,13 +65,13 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_mesh_flags(args) -> None:
+def mesh_of(args):
+    """The production mesh under `--production-mesh` / `--multi-pod`
+    (ValueError with the device count where there are too few), else
+    None (one device)."""
     if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "--production-mesh / --multi-pod shard the LM over a 16x16 (or "
-            "2x16x16) mesh; that needs the LM sharding rules (fsdp/sp/model) "
-            "and the production mesh, which come with the LM mesh slice. "
-            "This driver trains on one device")
+        return make_production_mesh(multi_pod=args.multi_pod)
+    return None
 
 
 def make_step(model: Model, opt_cfg, comp_cfg):
@@ -75,6 +80,9 @@ def make_step(model: Model, opt_cfg, comp_cfg):
     feedback when `comp_cfg.kind` is not "none" (the residuals live in
     the step). step(opt_state, batch) -> (opt_state, metrics)."""
     transform = None
+    if comp_cfg.kind != "none" and is_sharded(model.mesh):
+        raise ValueError("--compress runs on one device; the sharded "
+                         "step takes uncompressed gradients")
     if comp_cfg.kind != "none":
         residuals = init_residuals(model.params())
 
@@ -101,8 +109,8 @@ def run(args, log=print, fault_manager=None, model=None) -> dict:
     `--ckpt-dir` saving every `--save-every` steps). Returns dict(model,
     opt_state, metrics (one dict of floats per step run), step_ms (each
     step's wall), start, stopped (True on preemption), monitor)."""
-    check_mesh_flags(args)
-    model = model if model is not None else lm_model(args)
+    mesh = mesh_of(args)
+    model = model if model is not None else lm_model(args, mesh)
     cfg, dev = model.cfg, model.device
     shape = ShapeConfig("custom", "train", args.seq, args.batch)
     opt_cfg = opt_config(args, cfg)
@@ -116,7 +124,8 @@ def run(args, log=print, fault_manager=None, model=None) -> dict:
     (restored, opt_state), start = fm.restore_latest((params, opt_state))
     if start:
         with torch.no_grad():
-            for p, q in zip(flatten(params), flatten(restored)):
+            for p, q in zip(_tensors(flatten(params)),
+                            _tensors(flatten(restored))):
                 p.copy_(q)
         opt_state = opt_state._replace(step=torch.tensor(
             start, dtype=torch.int32, device=dev))

@@ -18,6 +18,16 @@ into the cache tensors at `pos` (the reference's donated
 Python int, so the write needs no device read. A write at or past the
 cache's length raises, where the reference's clamped slice would silently
 overwrite the last slot.
+
+Over a mesh (`*_tp`, one data row; lists hold one entry per "model"
+position): each position computes its own block of the query heads and
+the row-parallel part of `wo` (a partial sum). Its K/V heads are its own
+block when the rule puts them over "model" (`kv_logical`), else every
+position computes all of them and reads the group its query heads use.
+The decode cache is sequence-sharded ("sp"): each position holds a block
+of the positions of every head, the new token's K/V go to the block that
+owns `pos`, and the blocks' partial softmaxes are combined by their
+log-sum-exp.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as D
 from repro_torch.models.pspec import PSpec
 from repro_torch.models.layers import apply_rope
 
@@ -221,3 +232,123 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq: int,
     shape = (batch, seq, cfg.num_kv_heads, cfg.head_dim_)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device), pos=0)
+
+
+# --- over a mesh ------------------------------------------------------------
+
+def kv_range(cfg: ModelConfig, m: int, nm: int) -> tuple:
+    """[lo, hi) of the K/V heads that model position m's query heads read
+    (its block of `padded_heads`), when K/V are not sharded."""
+    hq = cfg.padded_heads // nm
+    g = cfg.padded_heads // cfg.num_kv_heads
+    if (hq % g if hq >= g else g % hq):
+        raise ValueError(f"{nm} model shards of {cfg.padded_heads} query "
+                         f"heads do not align with GQA groups of {g}")
+    return (m * hq) // g, (m * hq + hq - 1) // g + 1
+
+
+def _qkv_tp(p, xs, cfg: ModelConfig, positions):
+    """Each position's (q, k, v) from its weights; positions (B, S)."""
+    return [_qkv(pm, x, cfg, positions.to(x.device))
+            for pm, x in zip(p, xs)]
+
+
+def attend_train_tp(p, xs, cfg: ModelConfig):
+    """Causal self-attention of one data row over its model positions: `p`
+    is a list of each position's weights, `xs` the replicated input.
+    Returns each position's partial output and its (k, v): its own head
+    block under a "model" rule, else all heads."""
+    b, s, _ = xs[0].shape
+    nm = len(xs)
+    positions = torch.arange(s).expand(b, s)
+    outs, kvs = [], []
+    for m, (pm, (q, k, v)) in enumerate(zip(p, _qkv_tp(p, xs, cfg,
+                                                       positions))):
+        kq, vq = k, v
+        if kv_logical(cfg) is None:
+            lo, hi = kv_range(cfg, m, nm)
+            kq, vq = k[:, :, lo:hi], v[:, :, lo:hi]
+        out = chunked_attention(q, kq, vq, cfg, causal=True)
+        outs.append(_out_proj(out, pm["wo"]))
+        kvs.append((k, v))
+    return outs, kvs
+
+
+def cache_blocks(kvs, cfg: ModelConfig, devices) -> list:
+    """Prefill's K/V as the "sp" cache: position m's (k, v) of every head
+    over its block of the sequence."""
+    if kv_logical(cfg) is not None:
+        ks = D.all_gather([k for k, _ in kvs], 2, devices)
+        vs = D.all_gather([v for _, v in kvs], 2, devices)
+    else:
+        ks, vs = [k for k, _ in kvs], [v for _, v in kvs]
+    nm = len(devices)
+    return [(k.chunk(nm, 1)[m], v.chunk(nm, 1)[m])
+            for m, (k, v) in enumerate(zip(ks, vs))]
+
+
+def attend_decode_tp(p, xs, caches, pos: int, cfg: ModelConfig, devices):
+    """One-token decode of one data row. `caches[m]` is position m's
+    KVCache or Int8KVCache over its block of the sequence, written in
+    place where it owns `pos`. Returns each position's partial output."""
+    b = xs[0].shape[0]
+    nm = len(xs)
+    blk = caches[0].k.shape[1]
+    check_cache_room(pos, blk * nm)
+    positions = torch.full((b, 1), pos, dtype=torch.int64)
+    qkv = _qkv_tp(p, xs, cfg, positions)
+    qs = D.all_gather([q for q, _, _ in qkv], 2, devices)
+    if kv_logical(cfg) is not None:
+        ks = D.all_gather([k for _, k, _ in qkv], 2, devices)
+        vs = D.all_gather([v for _, _, v in qkv], 2, devices)
+    else:
+        ks, vs = [k for _, k, _ in qkv], [v for _, _, v in qkv]
+    own, at = divmod(pos, blk)
+    c = caches[own]
+    if isinstance(c, Int8KVCache):
+        k_q, k_s = _quantize_kv(ks[own])
+        v_q, v_s = _quantize_kv(vs[own])
+        c.k[:, at] = k_q[:, 0]
+        c.v[:, at] = v_q[:, 0]
+        c.k_scale[:, at] = k_s[:, 0]
+        c.v_scale[:, at] = v_s[:, 0]
+    else:
+        c.k[:, at] = ks[own][:, 0].to(c.k.dtype)
+        c.v[:, at] = vs[own][:, 0].to(c.v.dtype)
+
+    hp, hd = qs[0].shape[2], qs[0].shape[3]
+    kvh = cfg.num_kv_heads
+    parts = []                          # (max, sum, weighted V) a block
+    for m, (q, c) in enumerate(zip(qs, caches)):
+        if isinstance(c, Int8KVCache):
+            k_r = c.k.to(q.dtype) * c.k_scale[..., None].to(q.dtype)
+            v_r = c.v.to(q.dtype) * c.v_scale[..., None].to(q.dtype)
+        else:
+            k_r, v_r = c.k.to(q.dtype), c.v.to(q.dtype)
+        qg = q.reshape(b, kvh, hp // kvh, hd)
+        s = torch.einsum("bkgh,bskh->bkgs", qg, k_r) / _in_dtype(
+            cfg.head_dim_ ** 0.5, q.dtype)
+        mask = m * blk + torch.arange(blk, device=q.device) <= pos
+        s = torch.where(mask, s.float(), NEG_INF)
+        mx = torch.amax(s, dim=-1)
+        e = torch.exp(s - mx[..., None])
+        parts.append((mx, torch.sum(e, dim=-1),
+                      torch.einsum("bkgs,bskh->bkgh", e, v_r.float())))
+    outs = []
+    made = {}
+    for m, (pm, dev) in enumerate(zip(p, devices)):
+        if dev not in made:
+            mxs = [x.to(dev) for x, _, _ in parts]
+            top = torch.amax(torch.stack(mxs), 0)
+            den = num = None
+            for mx, (_, l, o) in zip(mxs, parts):
+                w = torch.exp(mx - top)
+                den = l.to(dev) * w if den is None else den + l.to(dev) * w
+                t = o.to(dev) * w[..., None]
+                num = t if num is None else num + t
+            made[dev] = (num / den[..., None]).to(qs[m].dtype) \
+                .reshape(b, 1, hp, hd)
+        hq = hp // nm
+        out = made[dev][:, :, m * hq:(m + 1) * hq]
+        outs.append(_out_proj(out, pm["wo"]))
+    return outs

@@ -56,8 +56,22 @@ reference's do.
 
 Decode caches are written in place and carry `pos` as a Python int; a
 decode past an attention cache's length raises before anything is
-written. A mesh is accepted only when every axis has size 1; LM sharding
-comes with its own slice.
+written.
+
+Over a mesh (the dense family; `check_mesh`): the parameters are held as
+`distributed.sharding.Sharded` pieces, placed by `shardings()` (the
+reference's rules, `models.pspec.shardings`), and drawn as on one device
+then placed, so a sharded model has an unsharded one's weights.
+`params()` is then a tree of `Sharded`; `state_dict()` gives the gathered
+tensors and `load_state_dict` places them. The batch goes over the data
+rows of the mesh when they divide it and it holds more than one
+sequence, else every row holds all of it (`loss` and `forward` then run
+row 0 only, the others would repeat it); each row runs the layers
+tensor-parallel over its "model" positions, the weights gathered over
+the FSDP axes at use, inside each layer's checkpoint. Decode caches are
+`Sharded` by `cache_logical` (sequence over "model"). `forward`,
+`prefill` and `decode_step` return whole logits on the primary device.
+A mesh with one device runs the one-device code.
 """
 from __future__ import annotations
 
@@ -68,11 +82,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as D
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as S
 from repro_torch.models import mla as M
+from repro_torch.models import pspec
 from repro_torch.models.pspec import (PSpec, init_params, leaves, stack,
                                       tree_map)
 
@@ -95,12 +111,21 @@ def check_family(cfg: ModelConfig) -> None:
                          f"port runs {'/'.join(FAMILIES)}")
 
 
-def check_mesh(mesh) -> None:
-    """Accept None or a mesh whose every axis has size 1."""
-    if mesh is not None and any(n != 1 for n in mesh.shape.values()):
+def is_sharded(mesh) -> bool:
+    """True for a mesh of more than one position."""
+    return mesh is not None and mesh.size > 1
+
+
+def check_mesh(mesh, cfg: ModelConfig) -> None:
+    """Accept None, a one-device mesh, or any mesh for the dense family;
+    raise NotImplementedError for another family over a larger mesh."""
+    if is_sharded(mesh) and cfg.family not in DENSE_FAMILIES:
         raise NotImplementedError(
-            f"the LM runs on one device; a mesh of shape {dict(mesh.shape)} "
-            "needs the LM sharding rules (fsdp/sp/model), a later slice")
+            f"{cfg.name}: the {cfg.family} family runs on one device; a "
+            f"mesh of shape {dict(mesh.shape)} needs its sharding (MoE "
+            "experts over model, MLA, the SSM's d_inner, the hybrid's "
+            "shared block, cross-attention), the next LM mesh slice. The "
+            "dense family runs over any mesh")
 
 
 def _resolve_device(device) -> torch.device:
@@ -211,21 +236,23 @@ def decoder_decode_block(p, x, cache, enc_out, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """An LM of any registry family on one device.
+    """An LM of any registry family on one device, or of the dense family
+    over a mesh.
 
-    device: where the parameters live (default "cuda", or the mesh's
-        device); "meta" lays out shapes without drawing.
+    device: where the parameters are drawn (default "cuda", or the
+        mesh's primary device); "meta" lays out shapes without drawing.
     seed: the parameters are drawn from `torch.Generator(device)` seeded
         with it, by the reference's init rules (`models.pspec`), in
         `cfg.param_dtype`.
-    mesh: None or a one-device `distributed.sharding.Mesh`.
+    mesh: None or a `distributed.sharding.Mesh`; over more than one
+        position the drawn parameters are placed on it (`shardings()`).
     """
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
                  mesh=None):
         super().__init__()
         check_family(cfg)
-        check_mesh(mesh)
+        check_mesh(mesh, cfg)
         if device is None:
             device = mesh.primary if mesh is not None else "cuda"
         device = _resolve_device(device)
@@ -235,7 +262,11 @@ class Model(nn.Module):
         if device.type != "meta":
             gen = torch.Generator(device=device).manual_seed(seed)
         tree = init_params(self.specs(), gen, _param_dtype(cfg), device)
-        _register(self, tree)
+        self._sharded = None
+        if is_sharded(mesh):
+            self._sharded = D.shard_tree(tree, self.shardings())
+        else:
+            _register(self, tree)
         self._cast_key = None
         self._cast = None
 
@@ -268,9 +299,43 @@ class Model(nn.Module):
             out["ln_enc"] = L.rmsnorm_spec(cfg.d_model)
         return out
 
+    def shardings(self) -> dict:
+        """The parameters' placements on the model's mesh."""
+        return pspec.shardings(self.specs(), self.mesh,
+                               self.cfg.fsdp_over_pod)
+
     def params(self) -> dict:
-        """The parameters as the reference's nested tree."""
+        """The parameters as the reference's nested tree (of `Sharded`
+        over a mesh)."""
+        if self._sharded is not None:
+            return self._sharded
         return tree_map(self.get_parameter, _paths(self.specs()))
+
+    def requires_grad_(self, requires_grad: bool = True):
+        if self._sharded is not None:
+            for _, t in leaves(self._sharded):
+                for p in t.pieces:
+                    p.requires_grad_(requires_grad)
+        return super().requires_grad_(requires_grad)
+
+    def state_dict(self, *args, **kwargs):
+        """Over a mesh: the gathered parameters by dotted path."""
+        if self._sharded is None:
+            return super().state_dict(*args, **kwargs)
+        return {path: t.gather().detach()
+                for path, t in leaves(self._sharded)}
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """Over a mesh: each whole tensor placed into the pieces."""
+        if self._sharded is None:
+            return super().load_state_dict(state_dict, strict=strict,
+                                           assign=assign)
+        with torch.no_grad():
+            for path, t in leaves(self._sharded):
+                new = D.shard(state_dict[path].to(t.dtype), t.sharding)
+                for p, q in zip(t.pieces, new):
+                    p.copy_(q)
 
     def compute_params(self) -> dict:
         """The parameter tree cast to the compute dtype. Without autograd
@@ -278,20 +343,25 @@ class Model(nn.Module):
         version); under autograd it is made afresh, on the tape."""
         tree = self.params()
         dt = _compute_dtype(self.cfg)
-        flat = [t for _, t in leaves(tree)]
+        cast = (lambda t: t.map(lambda p: p.to(dt))) \
+            if self._sharded is not None else (lambda t: t.to(dt))
+        flat = [p for _, t in leaves(tree)
+                for p in (t.pieces if self._sharded is not None else [t])]
         if all(t.dtype == dt for t in flat):
             return tree
         if torch.is_grad_enabled() and any(t.requires_grad for t in flat):
-            return tree_map(lambda t: t.to(dt), tree)
+            return tree_map(cast, tree)
         key = (dt,) + tuple((t.data_ptr(), t.device, t._version)
                             for t in flat)
         if key != self._cast_key:
-            self._cast = tree_map(lambda t: t.to(dt), tree)
+            self._cast = tree_map(cast, tree)
             self._cast_key = key
         return self._cast
 
     @property
     def device(self) -> torch.device:
+        if self._sharded is not None:
+            return self.mesh.primary
         return self.ln_f.device
 
     def _zero(self) -> torch.Tensor:
@@ -369,11 +439,15 @@ class Model(nn.Module):
     @torch.no_grad()
     def forward(self, batch):
         """Full forward -> (logits (B, S, padded_vocab), aux)."""
+        if self._sharded is not None:
+            return self._tp_forward(batch)
         return self._forward(batch)
 
     def loss(self, batch):
         """Next-token cross entropy + 0.01 aux: a 0-d float32 tensor, on
         the autograd tape when the parameters are trainable."""
+        if self._sharded is not None:
+            return self._tp_loss(batch)
         logits, aux = self._forward(batch)
         ce = L.softmax_xent(logits, batch["labels"], self.cfg.padded_vocab)
         return ce + 0.01 * aux
@@ -383,6 +457,8 @@ class Model(nn.Module):
     def prefill(self, batch):
         """Returns (last-token logits (B, padded_vocab), decode caches of
         the prompt; see the module docstring for each family's tree)."""
+        if self._sharded is not None:
+            return self._tp_prefill(batch)
         cfg = self.cfg
         p = self.compute_params()
         bf16 = torch.bfloat16
@@ -432,9 +508,14 @@ class Model(nn.Module):
         return x, caches
 
     # ---- decode ----
-    def init_caches(self, batch: int, seq: int) -> dict:
+    def init_caches(self, batch: int, seq: int, device=None) -> dict:
+        """Empty decode caches; over a mesh `Sharded` by `cache_logical`.
+        `device` makes them whole on that device instead ("meta" for
+        shapes only)."""
+        if self._sharded is not None and device is None:
+            return self._tp_init_caches(batch, seq)
         cfg = self.cfg
-        dev = self.device
+        dev = self.device if device is None else torch.device(device)
 
         def zeros(shape, dtype=torch.bfloat16):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -450,7 +531,7 @@ class Model(nn.Module):
                                            zeros(sshape, torch.float32))),
                             pos=0)
             return dict(kv=dict(kv=self._stacked_kv(batch, seq,
-                                                    cfg.num_layers)),
+                                                    cfg.num_layers, dev)),
                         pos=0)
         if cfg.family == "moe":
             if cfg.use_mla:
@@ -459,7 +540,7 @@ class Model(nn.Module):
                             zeros((n, batch, seq, cfg.qk_rope_head_dim)))
             else:
                 def mk(n):
-                    return self._stacked_kv(batch, seq, n)
+                    return self._stacked_kv(batch, seq, n, dev)
             out = dict(kv=mk(cfg.num_layers - cfg.first_k_dense), pos=0)
             if cfg.first_k_dense:
                 out["first"] = mk(cfg.first_k_dense)
@@ -472,19 +553,43 @@ class Model(nn.Module):
             n_groups, rem = divmod(cfg.num_layers, cfg.attn_every)
             out = dict(groups=tuple(zeros((n_groups, cfg.attn_every)
                                           + x.shape) for x in c),
-                       attn_kv=self._stacked_kv(batch, seq, n_groups),
+                       attn_kv=self._stacked_kv(batch, seq, n_groups, dev),
                        pos=0)
             if rem:
                 out["tail"] = tuple(zeros((rem,) + x.shape) for x in c)
             return out
-        return dict(self_kv=self._stacked_kv(batch, seq, cfg.num_layers),
+        return dict(self_kv=self._stacked_kv(batch, seq, cfg.num_layers, dev),
                     enc_out=zeros((batch, seq, cfg.d_model)), pos=0)
 
-    def _stacked_kv(self, batch, seq, n_layers) -> tuple:
+    def _stacked_kv(self, batch, seq, n_layers, device) -> tuple:
         cfg = self.cfg
         shape = (n_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim_)
         return tuple(torch.zeros(shape, dtype=torch.bfloat16,
-                                 device=self.device) for _ in range(2))
+                                 device=device) for _ in range(2))
+
+    def input_specs(self, shape) -> dict:
+        """The batch of a `configs.ShapeConfig` as tensors on the meta
+        device (the reference's `input_specs`): train batches with
+        "labels", prefill without, decode (B, 1) tokens."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def meta(shape_, dtype=torch.int64):
+            return torch.empty(shape_, dtype=dtype, device="meta")
+        if shape.kind == "decode":
+            return dict(tokens=meta((b, 1)))
+        if cfg.family == "encdec":
+            out = dict(enc_embeds=meta((b, s // 2, cfg.d_model),
+                                       torch.bfloat16),
+                       tokens=meta((b, s // 2)), labels=meta((b, s // 2)))
+        elif cfg.embeds_input:
+            out = dict(embeds=meta((b, s, cfg.d_model), torch.bfloat16),
+                       labels=meta((b, s)))
+        else:
+            out = dict(tokens=meta((b, s)), labels=meta((b, s)))
+        if shape.kind == "prefill":
+            out.pop("labels")
+        return out
 
     def cache_logical(self, batch: int):
         """Logical-sharding tree with the same structure as init_caches."""
@@ -529,6 +634,8 @@ class Model(nn.Module):
     def decode_step(self, caches, tokens):
         """tokens: (B, 1) integer -> (logits (B, padded_vocab), caches with
         pos + 1). The cache tensors are updated in place."""
+        if self._sharded is not None:
+            return self._tp_decode_step(caches, tokens)
         cfg = self.cfg
         p = self.compute_params()
         x = L.embed_tokens(p["embed"], tokens).to(_compute_dtype(cfg))
@@ -605,6 +712,179 @@ class Model(nn.Module):
                 B.layer(p["layers"], i), x,
                 A.KVCache(k=kstack[i], v=vstack[i], pos=pos), enc_out, cfg)
         return x
+
+
+    # ---- over a mesh (dense family) ----
+    def _tp_rows(self, batch) -> tuple:
+        """(each data row's batch, whether the batch was split): split
+        over the rows when they divide it and B > 1, else whole at each."""
+        b = next(iter(batch.values())).shape[0]
+        n = len(self.mesh.rows())
+        split = b % n == 0 and b > 1
+        if not split:
+            return [batch] * n, False
+        return [{k: v.chunk(n)[r] for k, v in batch.items()}
+                for r in range(n)], True
+
+    def _tp_devices(self, r: int) -> list:
+        fd = self.mesh.flat_devices()
+        return [fd[i] for i in self.mesh.rows()[r]]
+
+    def _tp_hidden(self, p, rows, with_kv: bool = False):
+        """The layers over `rows` (row batches, from row 0): (each row's
+        boundary-layout output, each row's (B_r, S, D) shape, per layer
+        each row's per-position (k, v) with `with_kv`)."""
+        cfg, mesh = self.cfg, self.mesh
+        dt = _compute_dtype(cfg)
+        g = B.fsdp_gather(p["embed"], mesh)
+        xs_rows, shapes = [], []
+        for r, rb in enumerate(rows):
+            devs = self._tp_devices(r)
+            if "embeds" in rb:
+                xs = [rb["embeds"].to(dev) for dev in devs]
+            else:
+                xs = L.embed_tokens_tp(B.row_params(g, mesh.rows()[r]),
+                                       rb["tokens"], cfg, devs)
+            xs = [x.to(dt) for x in xs]
+            shapes.append(xs[0].shape)
+            xs_rows.append(B.boundary(xs, devs))
+
+        def layer(lp, xs_rows):
+            return B.dense_block_tp(lp, xs_rows, shapes, cfg, mesh)[0]
+        kvs = []
+        for lp in B.unstack_sharded(p["layers"]):
+            if with_kv:
+                xs_rows, kv = B.dense_block_tp(lp, xs_rows, shapes, cfg,
+                                               mesh, with_kv=True)
+                kvs.append(kv)
+            else:
+                xs_rows = B.remat_call(layer, lp, xs_rows)
+        return xs_rows, shapes, kvs
+
+    def _tp_logits(self, p, xs_rows, shapes, last: bool = False) -> list:
+        """Each row's vocab-sharded logits (a list over its positions), of
+        the last token only with `last`."""
+        mesh = self.mesh
+        g = B.fsdp_gather(dict(embed=p["embed"], ln_f=p["ln_f"]), mesh)
+        out = []
+        for r, (xs, shape) in enumerate(zip(xs_rows, shapes)):
+            devs = self._tp_devices(r)
+            pr = B.row_params(g, mesh.rows()[r])
+            h = B.normed(xs, pr["ln_f"], shape, self.cfg, devs)
+            if last:
+                h = [x[:, -1:] for x in h]
+            out.append(L.unembed_tp(pr["embed"], h, self.cfg))
+        return out
+
+    def _tp_whole(self, logits_rows, split: bool) -> torch.Tensor:
+        """Whole logits on the primary device from the rows' vocab
+        shards (row 0's when the batch was not split)."""
+        dev = self.mesh.primary
+        rows = [torch.cat([x.to(dev) for x in ls], -1)
+                for ls in (logits_rows if split else logits_rows[:1])]
+        return torch.cat(rows, 0)
+
+    def _tp_forward(self, batch):
+        rows, split = self._tp_rows(batch)
+        rows = rows if split else rows[:1]
+        p = self.compute_params()
+        xs_rows, shapes, _ = self._tp_hidden(p, rows)
+        logits = self._tp_whole(self._tp_logits(p, xs_rows, shapes), split)
+        return logits, self._zero()
+
+    def _tp_loss(self, batch):
+        """The masked NLL summed over the rows' vocab shards, over the
+        batch's global count of unmasked labels."""
+        rows, split = self._tp_rows(batch)
+        rows = rows if split else rows[:1]
+        p = self.compute_params()
+        xs_rows, shapes, _ = self._tp_hidden(p, rows)
+        dev = self.mesh.primary
+        total = None
+        for rb, ls in zip(rows, self._tp_logits(p, xs_rows, shapes)):
+            nll = L.softmax_xent_tp(ls, rb["labels"]).to(dev)
+            total = nll if total is None else total + nll
+        count = torch.clamp(torch.sum(batch["labels"].to(dev) >= 0), min=1)
+        return total / count + 0.01 * self._zero()
+
+    def _tp_prefill(self, batch):
+        """Every row runs (a batch it does not split is repeated at each
+        row, as its caches are); the caches are `Sharded`, their
+        sequence over "model"."""
+        cfg, mesh = self.cfg, self.mesh
+        rows, split = self._tp_rows(batch)
+        p = self.compute_params()
+        xs_rows, shapes, kvs = self._tp_hidden(p, rows, with_kv=True)
+        b, s = next(iter(batch.values())).shape[:2]
+        kv5 = (None, "dp" if split else None, "sp", None, None)
+        sh = D.named(self.mesh, kv5)
+        sh.check((cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim_))
+        blocks = [[] for _ in range(mesh.size)]    # per position, per layer
+        for layer_kvs in kvs:
+            for r, row_kv in enumerate(layer_kvs):
+                devs = self._tp_devices(r)
+                for i, kv in zip(mesh.rows()[r],
+                                 A.cache_blocks(row_kv, cfg, devs)):
+                    blocks[i].append(kv)
+        k = D.Sharded([torch.stack([kv[0] for kv in bl]).to(torch.bfloat16)
+                       for bl in blocks], sh)
+        v = D.Sharded([torch.stack([kv[1] for kv in bl]).to(torch.bfloat16)
+                       for bl in blocks], sh)
+        logits = self._tp_whole(self._tp_logits(p, xs_rows, shapes,
+                                                last=True), split)
+        return logits[:, 0], dict(kv=(k, v))
+
+    def _tp_init_caches(self, batch: int, seq: int) -> dict:
+        cfg, mesh = self.cfg, self.mesh
+        shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim_)
+
+        def zeros(shape, logical, dtype):
+            sh = D.named(self.mesh, logical)
+            local = sh.local_shape(shape)
+            return D.Sharded([torch.zeros(local, dtype=dtype, device=d)
+                              for d in mesh.flat_devices()], sh)
+        logical = self.cache_logical(batch)["kv"]
+        kv = tuple(zeros(shape, lg, torch.int8 if cfg.kv_quant
+                         else torch.bfloat16) for lg in logical["kv"])
+        if not cfg.kv_quant:
+            return dict(kv=dict(kv=kv), pos=0)
+        sc = tuple(zeros(shape[:-1], lg, torch.float32)
+                   for lg in logical["scale"])
+        return dict(kv=dict(kv=kv, scale=sc), pos=0)
+
+    def _tp_decode_step(self, caches, tokens):
+        cfg, mesh = self.cfg, self.mesh
+        pos = int(caches["pos"])
+        kst, vst = caches["kv"]["kv"]
+        A.check_cache_room(pos, kst.shape[2])
+        rows, split = self._tp_rows(dict(tokens=tokens))
+        if (kst.sharding.spec[1] is not None) != split:
+            raise ValueError(f"a batch of {tokens.shape[0]} against caches "
+                             f"placed {kst.sharding.spec}")
+        p = self.compute_params()
+        g = B.fsdp_gather(p["embed"], mesh)
+        dt = _compute_dtype(cfg)
+        xs_rows = [[x.to(dt) for x in L.embed_tokens_tp(
+            B.row_params(g, mesh.rows()[r]), rb["tokens"], cfg,
+            self._tp_devices(r))] for r, rb in enumerate(rows)]
+        scales = caches["kv"].get("scale")
+        for i, lp in enumerate(B.unstack_sharded(p["layers"])):
+            def cache(j):
+                if cfg.kv_quant:
+                    return A.Int8KVCache(
+                        k=kst.pieces[j][i], v=vst.pieces[j][i],
+                        k_scale=scales[0].pieces[j][i],
+                        v_scale=scales[1].pieces[j][i], pos=pos)
+                return A.KVCache(k=kst.pieces[j][i], v=vst.pieces[j][i],
+                                 pos=pos)
+            cs = [[cache(j) for j in row] for row in mesh.rows()]
+            xs_rows = B.dense_decode_block_tp(lp, xs_rows, cs, pos, cfg,
+                                              mesh)
+        shapes = [xs[0].shape for xs in xs_rows]
+        xs_rows = [B.boundary(xs, self._tp_devices(r))
+                   for r, xs in enumerate(xs_rows)]
+        logits = self._tp_whole(self._tp_logits(p, xs_rows, shapes), split)
+        return logits[:, 0], dict(caches, pos=pos + 1)
 
 
 def _drop(out) -> None:

@@ -11,8 +11,9 @@ one (`param_dtype="bfloat16"`) in bf16, in place. The draws are not the
 reference's jax random streams; weights are carried across packages with
 `repro_torch.convert.lm_params_from_numpy`.
 
-The logical axis names ("fsdp", "model", ...) are kept on every spec for
-the LM sharding rules of a later slice; on one device they are unused.
+The logical axis names ("fsdp", "model", ...) on every spec give its
+placement over a mesh (`shardings`, `partition_specs`), by the rules of
+`distributed.sharding.resolve`; on one device they are unused.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import dataclasses
 from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
+
+from repro_torch.distributed.sharding import NamedSharding, resolve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,3 +101,15 @@ def init_params(tree, generator: Optional[torch.Generator], dtype=None,
             node = node.setdefault(k, {})
         node[last] = _init_one(p, generator, dtype, device)
     return out
+
+
+def shardings(tree, mesh, fsdp_over_pod: bool = False) -> dict:
+    """A `NamedSharding` per spec of `tree`, on `mesh`."""
+    return tree_map(lambda p: NamedSharding(
+        mesh, resolve(p.logical, mesh, fsdp_over_pod)), tree)
+
+
+def partition_specs(tree, mesh, fsdp_over_pod: bool = False) -> dict:
+    """The mesh axes of each dimension (a PartitionSpec's entries) per
+    spec of `tree`."""
+    return tree_map(lambda p: resolve(p.logical, mesh, fsdp_over_pod), tree)

@@ -18,7 +18,9 @@ tile-sharded over four virtual shards of the card equal to the
 single-device frame bit for bit; a scene trained 3 steps on the card,
 served through K1 and K2 within 2e-4 of the all-"torch" frame; the LM's
 float32 forward, prefill and decode logits on the card within rtol 1e-4
-of the CPU's); K4 (dense CAT)
+of the CPU's, and the dense LM over four virtual shards against one
+device on the card: loss 1e-5, updates 1e-3 lr, replicas bit-equal,
+logits 1e-4); K4 (dense CAT)
 exact
 under FULL_FP32 and MIXED; K3 (full-sweep blend) rgb/trans atol 1e-6;
 the kernels' fp16/fp8 rounding (`prtu.alg1_quant`) bit-equal to the plain
@@ -604,12 +606,16 @@ def check_fit_on_card(cuda):
 
 def check_lm_card_vs_cpu(cuda):
     """The LM on the card against the CPU: reduced qwen1.5-0.5b under
-    float32 compute, one set of weights (drawn on the CPU, copied), its
-    forward, prefill and 8 decode steps within rtol 1e-4 and atol 1e-4 x
-    max|logit| on both devices; the card's caches stay on the card."""
+    float32 compute, one set of weights (drawn on the CPU, copied), by
+    `models.parity.lm_parity` (the smoke's 10d helper): forward, prefill
+    and 8 teacher-forced decode steps under float32 caches within rtol
+    1e-4 and atol 1e-4 x max|logit|; under the model's bf16 caches each
+    cache element within one bf16 ulp of the CPU's (past float32 noise),
+    the caches on the card."""
     import dataclasses
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import Model
+    from repro_torch.models.parity import failures, lm_parity
     cfg = dataclasses.replace(reduced(get_arch("qwen1.5-0.5b")),
                               dtype="float32", attn_chunk=8)
     cpu = Model(cfg, device="cpu", seed=0)
@@ -619,21 +625,66 @@ def check_lm_card_vs_cpu(cuda):
     gen = torch.Generator().manual_seed(20)
     prompt = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
     toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    assert card.init_caches(2, 8)["kv"]["kv"][0].device.type == "cuda"
+    result = lm_parity(card, cpu, prompt, toks, cuda, "cpu")
+    assert not failures(result), result
 
-    def run(m, dev):
-        out = [m.forward(dict(tokens=prompt.to(dev)))[0],
-               m.prefill(dict(tokens=prompt.to(dev)))[0]]
-        caches = m.init_caches(2, 8)
-        for i in range(8):
-            lg, caches = m.decode_step(caches, toks[:, i:i + 1].to(dev))
-            out.append(lg)
-        assert caches["kv"]["kv"][0].device.type == torch.device(dev).type
-        return [x.cpu() for x in out]
 
-    for got, want in zip(run(card, cuda), run(cpu, "cpu")):
-        scale = float(want.abs().max())
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
-                                   atol=1e-4 * scale)
+def check_lm_mesh_on_card(cuda):
+    """The dense LM over four virtual shards of the card, (data=2,
+    model=2), against one device on the card: reduced qwen1.5-0.5b under
+    float32 compute, its loss within 1e-5 relative, one driver step's
+    updates within 1e-3 lr plus two ulps where the gradient exceeds 1e-2
+    of its leaf's largest, every replica bit-equal; prefill and 8 decode
+    steps by `models.parity.lm_parity` (float32 caches at rtol 1e-4, the
+    bf16 caches within one ulp)."""
+    import dataclasses
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import tokens as data
+    from repro_torch.distributed.sharding import Mesh, Sharded
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.models.parity import failures, lm_parity
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(reduced(get_arch("qwen1.5-0.5b")),
+                              dtype="float32", attn_chunk=8)
+    mesh = Mesh([[cuda, cuda], [cuda, cuda]])
+    one = Model(cfg, device=cuda, seed=2)
+    sh = Model(cfg, device=cuda, seed=2, mesh=mesh)
+    batch = data.synthetic_batch(cfg, ShapeConfig("t", "train", 32, 4), 0,
+                                 device=cuda)
+    l1, l2 = float(one.loss(batch)), float(sh.loss(batch))
+    assert abs(l1 - l2) <= 1e-5 * abs(l1)
+    args = train.parser().parse_args(["--arch", cfg.name, "--steps", "2"])
+    opt_cfg = train.opt_config(args, cfg)
+    before = [{k: v.clone() for k, v in m.state_dict().items()}
+              for m in (one, sh)]
+    states = []
+    for m in (one, sh):
+        step = train.make_step(m, opt_cfg, train.CompressionConfig())
+        states.append(step(adamw.init(m.params(), opt_cfg), batch)[0])
+    lr = float(adamw.lr_at(states[0].step, opt_cfg))
+    grads = {k: v for k, v in zip(sorted(before[0]), [
+        m / (1 - opt_cfg.b1) for m in flatten(states[0].m)])}
+    got, want = sh.state_dict(), one.state_dict()
+    for k, g in grads.items():
+        sel = g.abs() > 1e-2 * g.abs().max()
+        d = ((got[k] - before[1][k]) - (want[k] - before[0][k])).abs()
+        mag = got[k].abs()
+        ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+        assert bool((d - 2 * ulp)[sel].max() <= 1e-3 * lr), k
+    for t in flatten((sh.params(), states[1])):
+        if isinstance(t, Sharded):
+            for grp in t.sharding.replica_groups():
+                assert all(torch.equal(t.pieces[i], t.pieces[grp[0]])
+                           for i in grp[1:])
+    gen = torch.Generator().manual_seed(22)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (4, 8), generator=gen)
+    result = lm_parity(sh, one, prompt, toks, cuda, cuda)
+    assert not failures(result), result
 
 
 @pytest.mark.cuda
@@ -647,8 +698,10 @@ def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     frame tile-sharded over four virtual shards of the card against the
     single-device frame (`check_sharded_equals_single`), a 3-step fit
     on the card whose scene is then served through K1 and K2
-    (`check_fit_on_card`), and the LM's float32 logits on the card
-    against the CPU (`check_lm_card_vs_cpu`)."""
+    (`check_fit_on_card`), the LM's float32 logits on the card
+    against the CPU (`check_lm_card_vs_cpu`), and the dense LM over four
+    virtual shards of the card against one device
+    (`check_lm_mesh_on_card`)."""
     t = 24
     rng = np.random.default_rng(11)
     first = [torch.from_numpy(x) for x in blend_operands(12, t=t, k=128)]
@@ -672,6 +725,7 @@ def test_fused_blend_kernel_sparse_masks_carried_state(cuda):
     check_sharded_equals_single(cuda)
     check_fit_on_card(cuda)
     check_lm_card_vs_cpu(cuda)
+    check_lm_mesh_on_card(cuda)
 
 
 @pytest.mark.cuda

@@ -166,6 +166,8 @@ def test_local_mesh_and_model_mesh_rule():
     cfg = reduced(get_arch("qwen1.5-0.5b"))
     m = Model(cfg, mesh=mesh)
     assert m.device == torch.device("cpu")
+    hybrid = reduced(get_arch("zamba2-1.2b"))
     for devices in ([["cpu"], ["cpu"]], ["cpu", "cpu"]):
         with pytest.raises(NotImplementedError, match="sharding"):
-            Model(cfg, mesh=Mesh(devices))
+            Model(hybrid, mesh=Mesh(devices))
+        assert Model(cfg, mesh=Mesh(devices)).device == torch.device("cpu")

@@ -647,7 +647,8 @@ def test_train_driver_resumes_bit_equal(tmp_path, capsys):
     0; a 6-step run preempted after step 4 and restarted ends bit-equal
     (parameters and optimizer state) to 6 uninterrupted steps;
     `--compress int8` on reduced qwen returns 0; `--device cuda` exits 2
-    without a card; `--production-mesh` raises naming the mesh slice."""
+    without a card; `--production-mesh` raises ValueError with the device
+    count (256 needed)."""
     base = ["--device", "cpu", "--arch", "mamba2-780m", "--reduced",
             "--batch", "2", "--seq", "32", "--save-every", "2"]
     ck = str(tmp_path / "ck")
@@ -681,7 +682,7 @@ def test_train_driver_resumes_bit_equal(tmp_path, capsys):
     if not torch.cuda.is_available():
         assert TR.main(["--arch", "qwen1.5-0.5b", "--reduced"]) == 2
         assert "torch.cuda.is_available() is False" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="LM mesh slice"):
+    with pytest.raises(ValueError, match="needs 256 devices"):
         TR.main(base + ["--production-mesh"])
 
 

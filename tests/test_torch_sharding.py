@@ -412,7 +412,7 @@ def test_sharded_errors_mesh_and_shard_frames(port_inputs):
     assert dshard.resolve(("tile", "dp", None), mesh) == \
         ("model", ("data",), None)
     with pytest.raises(ValueError, match="unknown logical axis"):
-        dshard.resolve(("fsdp",), mesh)
+        dshard.resolve(("expert",), mesh)
     with dshard.use_mesh(mesh):
         with dshard.use_mesh(None):
             assert dshard.active_mesh() is mesh
