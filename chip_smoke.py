@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--json PATH] [--passes-only | --offpath-only |
                           --sessions-only | --lod-only | --shards-only |
                           --train-only | --serve-only | --families-only |
-                          --lm-train-only | --lm-mesh-only]
+                          --lm-train-only | --lm-mesh-only |
+                          --lm-mesh-families-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -302,10 +303,44 @@ Phases, in order:
      d. reduced qwen float32, one driver step over (pod=2, data=2,
         model=2) under `fsdp_over_pod` off and on, against one device
         within 13a's gates
+  14. runs after 13: the MoE/MLA, SSM, hybrid and enc-dec families over
+     (data=2, model=2) virtual shards of the card (launches none of the
+     four kernels). For each of 14a-14d: a float32 gate at full width
+     (`fan_in_attention` weights) of prefill and 16 greedy steps from
+     float32 caches at batch 4 on the mesh against one device from the
+     same weights: logits within rtol 1e-4 and atol 1e-4 x max|logit|,
+     tokens equal, the MoE's routing flips counted; the gates (this and
+     b-d's training step) run at the depth where one device holds
+     against itself (FAM_MESH_GATE_DEPTH, from `python
+     tools/torch_lm_spreads.py --families`), and the cut archs run again
+     at full depth, reported, not gated; then the driver's dtypes at full
+     depth, one device built, run and freed before the mesh model: ms a
+     token, a warm decode step's busy share, peak memory.
+     a. deepseek-v2-lite-16b (the gate at its dense first layer and one
+        MoE layer; the cost with bf16 parameters, 31.4 GB), prompt 64
+     b. mamba2-780m, prompt 256 (the SSD chunk must divide it), and one
+        float32 driver step at 4 x 512 against one device from the same
+        state: loss and grad norm within 1e-5 relative, updates within
+        1e-3 lr plus two ulps where the gradient exceeds 1e-2 of its
+        leaf's largest, replicas bit-equal, every gradient leaf finite
+        (F9)
+     c. zamba2-1.2b, prompt 256; its driver step at 2 x 512, as b
+     d. seamless-m4t-large-v2, prompt 64 with 64 encoder frames; its
+        driver step at 2 x 512 at 8 + 8 layers (two float32 training
+        states and their copies at more do not fit 70 GB), as b
+     e. reduced arctic-480b in float32 (parameters and accumulation
+        too), Adafactor factored from 32, its 16 microbatches of 4 x 32:
+        one `launch.steps` step over (2, 2) and over (pod=2, data=2,
+        model=2) with `fsdp_over_pod` off and on, against one device
+        within b's gates (an unfactored leaf's update selected by its
+        first-step v = g² + eps, a factored leaf's held everywhere)
+     f. each reduced family (deepseek, arctic, mamba2, zamba2,
+        seamless) as 13c, with one step after the reshard
   5. one {"kernels": [...]} line (K1's and K2's rows also carry phase 8's
      shard_launches, shard_ms and shard_bound_ms, and phase 9d's
      train_launches; K1's also phase 10a's driver_launches; every row
-     phase 13's lm_mesh_launches, 0), the card
+     phase 13's lm_mesh_launches and phase 14's
+     lm_mesh_families_launches, 0), the card
      line, and as the last line {"ok": true, "device": {...}}
 
 Exits non-zero without printing a result when CUDA is unavailable or any
@@ -315,7 +350,8 @@ last line; `--sessions-only` runs phases 1 and 4g; `--lod-only` runs
 phases 1 and 7; `--shards-only` runs phases 1 and 8 (rendering 8d's
 plain frames itself); `--train-only` runs phases 1 and 9; `--serve-only`
 runs phases 1 and 10; `--families-only` phases 1 and 11; `--lm-train-only`
-phases 1 and 12; `--lm-mesh-only` phases 1 and 13; `--offpath-only` runs
+phases 1 and 12; `--lm-mesh-only` phases 1 and 13;
+`--lm-mesh-families-only` phases 1 and 14; `--offpath-only` runs
 phase 1, the 1024² setup,
 phase 6a and K3 on the 1024² frame's lists, and prints their times on
 the line before the card line and the contract's last line. A copy of this script placed
@@ -395,6 +431,7 @@ from repro_torch.distributed import sharding as D  # noqa: E402
 from repro_torch.distributed.fault import elastic_reshard  # noqa: E402
 from repro_torch.distributed.sharding import Mesh, Sharded  # noqa: E402
 from repro_torch.models import pspec  # noqa: E402
+from repro_torch.optim import adafactor as adafactor_mod  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serving import (HD_SCENE_KW, AdmissionRejected,  # noqa: E402
                                  RenderEngine, RenderRequest, Scheduler,
@@ -3972,7 +4009,7 @@ def mesh_and_one(cfg, mesh, dev, label, seed=0, fan_in=False) -> tuple:
 
 
 def mesh_steps_against_one(cfg, mesh, run, dev, label, seed=0,
-                           fan_in=False) -> dict:
+                           fan_in=False, gate=True) -> dict:
     """`run["steps"]` driver steps (AdamW, whole batch) of `cfg` on `mesh`
     and on one device from the same weights (`mesh_and_one`) and batches:
     per step the loss and grad norm (relative |Δ|), the update gate
@@ -3981,7 +4018,8 @@ def mesh_steps_against_one(cfg, mesh, run, dev, label, seed=0,
     first starts the mesh from the one-device run's parameters and
     moments (placed by `opt_shardings`), so that every step's update is
     held as one step from one state (12c's criterion), not two
-    trajectories that part by their earlier roundings."""
+    trajectories that part by their earlier roundings. Without `gate`
+    the loss, grad norm and updates are measured, not held."""
     args = lm_mesh_args(run, cfg)
     opt_cfg = train_driver.opt_config(args, cfg)
     comp = train_driver.CompressionConfig()
@@ -4014,10 +4052,11 @@ def mesh_steps_against_one(cfg, mesh, run, dev, label, seed=0,
         reps = replicas_equal(sh.params()) and replicas_equal(states[1])
         rows.append(dict(loss=mets[1]["loss"], loss_one=mets[0]["loss"],
                          rel=rel, update_err_lr=err, replicas=reps))
-        check(rel["loss"] <= 1e-5 and rel["grad_norm"] <= 1e-5,
-              f"{label} step {i}: loss/grad norm relative |Δ| {rel}")
-        check(err <= 1e-3, f"{label} step {i}: update |Δ| {err:.2e} lr")
         check(reps, f"{label} step {i}: replicas differ")
+        if gate:
+            check(rel["loss"] <= 1e-5 and rel["grad_norm"] <= 1e-5,
+                  f"{label} step {i}: loss/grad norm relative |Δ| {rel}")
+            check(err <= 1e-3, f"{label} step {i}: update |Δ| {err:.2e} lr")
         del before, m_prev, grad
     return dict(rows=rows, mesh_ms=walls[1], one_ms=walls[0],
                 models=(one, sh), states=states)
@@ -4220,22 +4259,25 @@ def phase_lm_mesh_serve(dev=torch.device("cuda")) -> dict:
     return out
 
 
-def phase_lm_mesh_resume(dev=torch.device("cuda")) -> dict:
-    """13c: save on (2, 2), restore, `elastic_reshard` onto (1, 4) and
-    (1, 1) (module docstring); the checkpoint under build/lm_mesh_ckpt,
-    removed after."""
+def phase_lm_mesh_resume(dev=torch.device("cuda"), arch=LM_MESH_ARCH,
+                         tag="lm-mesh 13c", after=None) -> dict:
+    """13c (14f for `arch`): save on (2, 2), restore, `elastic_reshard`
+    onto (1, 4) and (1, 1) (module docstring), then `after` more steps
+    (default as many as before); the checkpoint under
+    build/lm_mesh_ckpt, removed after."""
     root = os.path.join(ROOT, "build", "lm_mesh_ckpt")
     shutil.rmtree(root, ignore_errors=True)
     run = LM_MESH_RESUME
-    cfg = dataclasses.replace(reduced(get_arch(LM_MESH_ARCH)),
-                              dtype="float32")
+    after = run["steps"] if after is None else after
+    cfg = dataclasses.replace(reduced(get_arch(arch)), dtype="float32",
+                              param_dtype="float32")
     opt_cfg = train_driver.opt_config(lm_mesh_args(
-        dict(run, steps=2 * run["steps"]), cfg), cfg)
+        dict(run, steps=run["steps"] + after), cfg), cfg)
     comp = train_driver.CompressionConfig()
     shape = ShapeConfig("custom", "train", run["seq"], run["batch"])
     batches = [lm_data.synthetic_batch(cfg, shape, LM_MESH_SEED + i,
                                        device=dev)
-               for i in range(2 * run["steps"])]
+               for i in range(run["steps"] + after)]
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
     out = {}
@@ -4252,13 +4294,13 @@ def phase_lm_mesh_resume(dev=torch.device("cuda")) -> dict:
         (params, restored), at = fm.restore_latest(
             (pspec.tree_map(lambda t: t.gather(), src.params()),
              D.gather_tree(state)))
-        check(at == run["steps"], f"lm-mesh 13c: restored step {at}")
+        check(at == run["steps"], f"{tag}: restored step {at}")
         saved = [*gathered[0].items()]
         flat_params = dict(leaves(params))
         check(all(torch.equal(flat_params[k], v) for k, v in saved)
               and all(torch.equal(a, b) for a, b in zip(
                   ckpt.flatten(restored), ckpt.flatten(gathered[1]))),
-              "lm-mesh 13c: the restored state differs from the saved one")
+              f"{tag}: the restored state differs from the saved one")
         for shp in ((1, 4), (1, 1)):
             mesh = lm_mesh(shp, dev)
             specs = pspec.partition_specs(src.specs(), mesh)
@@ -4269,7 +4311,7 @@ def phase_lm_mesh_resume(dev=torch.device("cuda")) -> dict:
                      for x in ckpt.flatten((p2, s2))]
             check(all(torch.equal(a, b) for a, b in zip(
                 whole, ckpt.flatten((params, restored)))),
-                f"lm-mesh 13c {shp}: resharded state differs")
+                f"{tag} {shp}: resharded state differs")
             finals = []
             for how in ("resharded", "gathered"):
                 m = Model(cfg, device=dev, seed=1, mesh=mesh)
@@ -4287,16 +4329,16 @@ def phase_lm_mesh_resume(dev=torch.device("cuda")) -> dict:
                 finals.append([x.gather() if isinstance(x, Sharded) else x
                                for x in ckpt.flatten((m.params(), st))])
             same = all(torch.equal(a, b) for a, b in zip(*finals))
-            check(same, f"lm-mesh 13c {shp}: the steps after the reshard "
+            check(same, f"{tag} {shp}: the steps after the reshard "
                   "differ from the same steps from the gathered state")
             out[f"{shp[0]}x{shp[1]}"] = dict(bit_equal=same)
     finally:
         torch.use_deterministic_algorithms(was)
         shutil.rmtree(root, ignore_errors=True)
-    log(f"[lm-mesh 13c] reduced {cfg.name} float32, deterministic "
+    log(f"[{tag}] reduced {cfg.name} float32, deterministic "
         f"algorithms: {run['steps']} steps on (2, 2), saved by a "
         f"FaultManager and restored bit-equal, elastic_reshard onto (1, 4) "
-        f"and (1, 1) bit-equal when gathered, {run['steps']} more steps on "
+        f"and (1, 1) bit-equal when gathered, {after} more steps on "
         f"each bit-equal to the same steps from the gathered state: {out}; "
         f"build/lm_mesh_ckpt removed {not os.path.exists(root)}")
     return out
@@ -4338,6 +4380,356 @@ def phase_lm_mesh() -> dict:
                     blend_tiles=render.full_launches)
     check(not any(launches.values()),
           f"lm-mesh: the LM's mesh path launched kernels {launches}")
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the MoE/MLA, SSM, hybrid and enc-dec families over a mesh
+# ---------------------------------------------------------------------------
+
+FAM_MESH_ARCHS = (("14a", "deepseek-v2-lite-16b"), ("14b", "mamba2-780m"),
+                  ("14c", "zamba2-1.2b"), ("14d", "seamless-m4t-large-v2"))
+FAM_MESH_SERVE = dict(batch=4, prefill=64, decode=16, seed=25)
+# The SSD's chunk (256 for mamba2, 128 for zamba2) must divide a prompt:
+# the SSM families prefill 256 tokens.
+FAM_MESH_SSM_PREFILL = 256
+# Float32 gate depths (full width; None is full depth), from `python
+# tools/torch_lm_spreads.py --families` on the card (PERF.md §6, PR 24):
+# deepseek at its dense first layer and one MoE layer (11e's cut: at 4
+# layers one device parts from itself with the batch in halves by 0.24 x
+# max|logit|, routing flips); mamba2 at 2 (itself 1.3e-5 at 2, 2.0e-4 at
+# 8, 2.9e-2 at 48); zamba2 at 6, its first group with the shared block
+# (itself 4.4e-5 at 6, 4.6e-4 at 12, 3.1e-3 at 38); seamless at full
+# depth (itself 3.4e-6 at 24). A cut arch is also run, and reported, at
+# full depth.
+FAM_MESH_GATE_DEPTH = {"deepseek-v2-lite-16b": 2, "mamba2-780m": 2,
+                       "zamba2-1.2b": 6, "seamless-m4t-large-v2": None}
+# One float32 driver step (AdamW, whole batch) against one device. Its
+# full depth is cut where two training states and their copies pass 70
+# GB: seamless's do at 12 + 12 layers, so it trains at 8 + 8.
+FAM_MESH_TRAIN = {"mamba2-780m": dict(batch=4, seq=512, steps=1),
+                  "zamba2-1.2b": dict(batch=2, seq=512, steps=1),
+                  "seamless-m4t-large-v2": dict(batch=2, seq=512, steps=1,
+                                                depth=8)}
+FAM_MESH_ADAFACTOR = dict(batch=64, seq=32)          # 14e, 16 microbatches
+FAM_MESH_RESUME = ("deepseek-v2-lite-16b", "arctic-480b", "mamba2-780m",
+                   "zamba2-1.2b", "seamless-m4t-large-v2")
+
+
+def fam_prompt(cfg, dev, gen) -> dict:
+    """14a-14d's prompt: FAM_MESH_SERVE's batch of seeded tokens (the
+    SSM families' FAM_MESH_SSM_PREFILL long), the enc-dec's with seeded
+    N(0, 1) encoder frames of the prompt's length."""
+    run = FAM_MESH_SERVE
+    s = FAM_MESH_SSM_PREFILL if cfg.family in ("ssm", "hybrid") \
+        else run["prefill"]
+    b = run["batch"]
+    batch = dict(tokens=torch.randint(0, cfg.vocab_size, (b, s),
+                                      generator=gen).to(dev))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.randn((b, s, cfg.d_model),
+                                          generator=gen).to(dev)
+    return batch
+
+
+def fam_greedy(model, batch, n: int, caches, forced=None) -> tuple:
+    """`greedy` for any family: prefill `batch`, then `n` greedy steps
+    from `caches` (the enc-dec's reading the prefill's encoder output)."""
+    first, pc = model.prefill(batch)
+    if "enc_out" in caches:
+        caches = dict(caches, enc_out=pc["enc_out"])
+    del pc
+    tok = torch.argmax(first, -1)[:, None]
+    outs, toks, ms = [], [], []
+    for i in range(n):
+        feed = tok if forced is None else forced[:, i:i + 1]
+        (lg, caches), t = sync_wall_ms(lambda: model.decode_step(caches,
+                                                                 feed))
+        tok = torch.argmax(lg, -1)[:, None]
+        outs.append(lg)
+        toks.append(tok)
+        ms.append(t)
+    return first, torch.stack(outs, 1), torch.cat(toks, 1), caches, ms
+
+
+def mesh_routing(calls: list, one_calls: list, rows: int) -> list:
+    """The mesh run's routing in the one-device run's call order: each
+    MoE call of the mesh is one per data row, the whole batch's (a group
+    over the rows) or the row's own tokens, which are concatenated."""
+    out, i = [], 0
+    for want in one_calls:
+        chunk = calls[i:i + rows]
+        i += rows
+        out.append(chunk[0] if chunk[0].shape == want.shape
+                   else torch.cat(chunk))
+    return out
+
+
+def fam_cfg_at(name: str, depth, **changes):
+    """`name` at full width in float32 compute (and `changes`), cut to
+    `depth` layers (the enc-dec's encoder too) unless None."""
+    cfg = dataclasses.replace(get_arch(name), dtype="float32", **changes)
+    if depth is not None:
+        extra = dict(encoder_layers=depth) if cfg.family == "encdec" \
+            else {}
+        cfg = dataclasses.replace(cfg, num_layers=depth, **extra)
+    return cfg
+
+
+def fam_serve_gate(name: str, mesh, dev, tag: str, depth,
+                   gate: bool = True) -> dict:
+    """Float32 serving of `name` at full width cut to `depth` (the
+    attention projections at fan-in): prefill and FAM_MESH_SERVE's greedy
+    steps from float32 caches on `mesh` against one device; with `gate`,
+    logits within rtol 1e-4 / atol 1e-4 x max|logit| and tokens equal,
+    else reported; the MoE's routing flips counted."""
+    cfg = fam_cfg_at(name, depth, param_dtype="float32")
+    one, sh = mesh_and_one(cfg, mesh, dev, tag, fan_in=True)
+    gen = torch.Generator(device="cpu").manual_seed(FAM_MESH_SERVE["seed"])
+    batch = fam_prompt(cfg, dev, gen)
+    b, n = FAM_MESH_SERVE["batch"], FAM_MESH_SERVE["decode"]
+    runs = []
+    for m in (one, sh):
+        with RoutingLog() as rl:
+            res = fam_greedy(m, batch, n, parity.float32_caches(
+                m.init_caches(b, n)))
+        runs.append((res, rl.calls))
+    (w, w_calls), (g, g_calls) = runs
+    errs = dict(prefill=parity.logit_error(g[0], w[0]),
+                decode=parity.logit_error(g[1], w[1]))
+    same = torch.equal(g[2], w[2])
+    flips = None
+    if w_calls:
+        got = mesh_routing(g_calls, w_calls, len(mesh.rows()))
+        flips = float(torch.cat([(x != y).any(-1).float() for x, y in
+                                 zip(got, w_calls)]).mean())
+    out = dict(depth=cfg.num_layers, gated=gate,
+               errors={k: e for k, (e, _) in errs.items()},
+               tokens_equal=same, routing_flips=flips,
+               ms_per_token=float(np.median(g[4][1:])),
+               one_ms_per_token=float(np.median(w[4][1:])))
+    log(f"[{tag}] {name} float32 {'gate' if gate else '(reported)'} at "
+        f"{cfg.num_layers} layers, full width, `fan_in_attention`, batch "
+        f"{b}, prompt {next(iter(batch.values())).shape[1]}, {n} greedy "
+        f"steps from float32 caches over (2, 2) virtual shards vs one "
+        f"device: prefill {errs['prefill'][0]:.2e}, decode "
+        f"{errs['decode'][0]:.2e} x max|logit| (bound 1e-4), tokens equal "
+        f"{same}" + ("" if flips is None else f", routing flips {flips:.4f}"
+                     " of (token, MoE layer)")
+        + f"; {out['ms_per_token']:.1f} vs {out['one_ms_per_token']:.1f} ms"
+        f" a token ({card_line()})")
+    if gate:
+        check(all(ok for _, ok in errs.values()) and same,
+              f"{tag}: logits {errs}, tokens equal {same}")
+    del one, sh
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_serve_cost(name: str, mesh, dev, tag: str) -> dict:
+    """The driver's dtypes at full depth (deepseek's parameters bf16):
+    FAM_MESH_SERVE's traffic on one device, freed, then on `mesh`; ms a
+    token, a warm decode step's busy share and the peak of each. Each
+    model is drawn whole before it is placed, so at most one full copy of
+    the weights sits beside the placed pieces."""
+    cfg = get_arch(name)
+    if name == "deepseek-v2-lite-16b":
+        cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    b, n = FAM_MESH_SERVE["batch"], FAM_MESH_SERVE["decode"]
+    out = {}
+    for label, m_ in (("one", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev, seed=0, mesh=m_)
+        gen = torch.Generator(device="cpu").manual_seed(
+            FAM_MESH_SERVE["seed"])
+        batch = fam_prompt(cfg, dev, gen)
+        if "enc_embeds" in batch:
+            batch["enc_embeds"] = batch["enc_embeds"].bfloat16()
+        (first, steps, toks, caches, ms), pre_ms = sync_wall_ms(
+            lambda: fam_greedy(model, batch, n, model.init_caches(b, n)))
+        tok = toks[:, -1:]
+        fresh = model.init_caches(b, 2)
+        if "enc_out" in fresh:
+            fresh = dict(fresh, enc_out=caches["enc_out"])
+        wall = sync_wall_ms(lambda: model.decode_step(fresh, tok))[1]
+        fresh = model.init_caches(b, 2)
+        if "enc_out" in fresh:
+            fresh = dict(fresh, enc_out=caches["enc_out"])
+        busy, _ = device_profile(lambda: model.decode_step(fresh, tok))
+        out[label] = dict(ms_per_token=float(np.median(ms[1:])),
+                          step_wall_ms=wall, busy_ms=busy,
+                          busy_share=busy / wall,
+                          peak_bytes=torch.cuda.max_memory_allocated())
+        check(bool(torch.isfinite(steps).all()),
+              f"{tag} {label}: non-finite decode logits")
+        del model, caches, fresh, first, steps
+    one, sh = out["one"], out["mesh"]
+    log(f"[{tag}] {name} full depth ({cfg.num_layers} layers), compute "
+        f"{cfg.dtype}, parameters {cfg.param_dtype}, batch {b}, {n} greedy "
+        f"steps: (2, 2) virtual shards {sh['ms_per_token']:.1f} vs one "
+        f"device {one['ms_per_token']:.1f} ms a token; a warm step "
+        f"{sh['step_wall_ms']:.1f} ms wall, busy {100 * sh['busy_share']:.1f}%"
+        f" vs {one['step_wall_ms']:.1f} ms, {100 * one['busy_share']:.1f}%; "
+        f"peak {sh['peak_bytes'] / 1e9:.2f} vs {one['peak_bytes'] / 1e9:.2f}"
+        f" GB ({card_line()})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_train_gate(name: str, mesh, dev, tag: str, depth,
+                   gate: bool = True) -> dict:
+    """One float32 driver step (AdamW, whole batch) of `name` at full
+    width cut to `depth` (FAM_MESH_TRAIN's batch) on `mesh` against one
+    device from the same state: 13a's gates with `gate`, else reported;
+    replicas bit-equal and every gradient leaf finite on the mesh either
+    way (F9: the first moments are 0.1 g)."""
+    run = FAM_MESH_TRAIN[name]
+    cfg = fam_cfg_at(name, depth)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = mesh_steps_against_one(cfg, mesh, run, dev, tag,
+                                 fan_in=cfg.family != "ssm", gate=gate)
+    finite = all(bool(torch.isfinite(p).all())
+                 for t in ckpt.flatten(res["states"][1].m)
+                 for p in (t.pieces if isinstance(t, Sharded) else [t]))
+    row = res["rows"][0]
+    out = dict(row, finite=finite, mesh_ms=res["mesh_ms"],
+               one_ms=res["one_ms"], depth=cfg.num_layers, gated=gate,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"[{tag}] {name} float32 {'gate' if gate else '(reported)'} at "
+        f"{cfg.num_layers} layers, full width, batch {run['batch']} x "
+        f"{run['seq']}, one driver step over (2, 2) vs one device: loss "
+        f"{row['loss']:.6f} / {row['loss_one']:.6f} (rel "
+        f"{row['rel']['loss']:.1e}), grad norm rel "
+        f"{row['rel']['grad_norm']:.1e}, updates {row['update_err_lr']:.1e}"
+        f" lr past two ulps, replicas bit-equal {row['replicas']}, every "
+        f"gradient leaf finite {finite} (bounds 1e-5, 1e-5, 1e-3 lr); "
+        f"{res['mesh_ms'][0]:.1f} vs {res['one_ms'][0]:.1f} ms; peak "
+        f"{out['peak_bytes'] / 1e9:.2f} GB ({card_line()})")
+    check(finite, f"{tag}: a gradient leaf is not finite on the mesh")
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def adafactor_against_one(mesh, fop: bool, dev, tag: str) -> dict:
+    """14e: one `launch.steps` step of reduced arctic (Adafactor, its 16
+    microbatches; float32 parameters, compute and accumulation so that
+    13a's gates apply; factored from 32 so that its reduced widths
+    factor) on `mesh` against one device from the same weights and
+    batch. The update gate selects by |g| where Adafactor's first step
+    shows it (an unfactored leaf's v is g² + eps) and holds every element
+    of a factored leaf."""
+    cfg = dataclasses.replace(reduced(get_arch("arctic-480b")),
+                              dtype="float32", param_dtype="float32",
+                              moment_dtype="float32", fsdp_over_pod=fop)
+    opt_cfg = dataclasses.replace(lm_steps.make_opt_cfg(cfg),
+                                  warmup_steps=1, min_dim_size_to_factor=32)
+    run = FAM_MESH_ADAFACTOR
+    batch = lm_data.synthetic_batch(cfg, ShapeConfig(
+        "custom", "train", run["seq"], run["batch"]), LM_MESH_SEED,
+        device=dev)
+    one, sh = mesh_and_one(cfg, mesh, dev, tag, seed=LM_MESH_SEED)
+    before = [m.state_dict() for m in (one, sh)]
+    before = [{k: v.clone() for k, v in b.items()} for b in before]
+    res = []
+    for m in (one, sh):
+        state = adafactor_mod.init(m.params(), opt_cfg)
+        (state, met), ms = sync_wall_ms(lambda: lm_steps.make_train_step(
+            m, opt_cfg, m.mesh)(state, batch))
+        res.append((state, {k: float(v) for k, v in met.items()}, ms))
+    grad = {k: torch.sqrt(torch.clamp(v.full - opt_cfg.eps, min=0))
+            for k, v in leaves(res[0][0].v)
+            if v.full.dim()}
+    grad = {k: grad.get(k, torch.ones_like(v)) for k, v in
+            before[0].items()}
+    err = update_error(before[1], sh.state_dict(), before[0],
+                       one.state_dict(), grad, res[0][1]["lr"])
+    rel = {k: abs(res[1][1][k] - res[0][1][k]) / abs(res[0][1][k])
+           for k in ("loss", "grad_norm")}
+    reps = replicas_equal(sh.params()) and replicas_equal(res[1][0])
+    check(rel["loss"] <= 1e-5 and rel["grad_norm"] <= 1e-5,
+          f"{tag}: loss/grad norm relative |Δ| {rel}")
+    check(err <= 1e-3, f"{tag}: update |Δ| {err:.2e} lr")
+    check(reps, f"{tag}: replicas differ")
+    return dict(rel=rel, update_err_lr=err, replicas=reps,
+                mesh_ms=res[1][2], one_ms=res[0][2])
+
+
+def phase_fam_adafactor(dev=torch.device("cuda")) -> dict:
+    """14e: reduced arctic's Adafactor step over (2, 2) and (pod=2,
+    data=2, model=2) with `fsdp_over_pod` off and on."""
+    out = dict(mesh_2x2=adafactor_against_one(lm_mesh((2, 2), dev), True,
+                                               dev, "lm-mesh-families 14e"))
+    pod = lm_mesh((2, 2, 2), dev, ("pod", "data", "model"))
+    for fop in (False, True):
+        out[f"pod_fsdp_over_pod={fop}"] = adafactor_against_one(
+            pod, fop, dev, f"lm-mesh-families 14e pod fop={fop}")
+    log("[lm-mesh-families 14e] reduced arctic-480b float32, Adafactor "
+        f"(factored from 32), 16 microbatches of "
+        f"{FAM_MESH_ADAFACTOR['batch'] // 16} x {FAM_MESH_ADAFACTOR['seq']}"
+        ", one step vs one device: " + "; ".join(
+            f"{k}: loss rel {r['rel']['loss']:.1e}, grad norm rel "
+            f"{r['rel']['grad_norm']:.1e}, updates {r['update_err_lr']:.1e} "
+            f"lr, replicas bit-equal {r['replicas']}, {r['mesh_ms']:.0f} vs "
+            f"{r['one_ms']:.0f} ms" for k, r in out.items())
+        + " (bounds 1e-5, 1e-5, 1e-3 lr)")
+    return out
+
+
+def phase_fam_resume(dev=torch.device("cuda")) -> dict:
+    """14f: 13c for each reduced family (one step after the reshard)."""
+    return {name: phase_lm_mesh_resume(dev, name,
+                                       f"lm-mesh-families 14f {name}",
+                                       after=1)
+            for name in FAM_MESH_RESUME}
+
+
+def phase_fam_arch(tag: str, name: str, dev) -> dict:
+    """One of 14a-14d: the float32 serving and training gates at the gate
+    depth, the same at full depth reported where the gate is cut
+    (deepseek's two float32 copies do not fit), and the driver dtypes'
+    cost."""
+    mesh = lm_mesh(LM_MESH_SHAPE, dev)
+    label = f"lm-mesh-families {tag}"
+    depth = FAM_MESH_GATE_DEPTH[name]
+    out = dict(serve_gate=fam_serve_gate(name, mesh, dev, label, depth))
+    cut = depth is not None and name != "deepseek-v2-lite-16b"
+    if cut:
+        out["serve_full"] = fam_serve_gate(name, mesh, dev, label, None,
+                                           gate=False)
+    if name in FAM_MESH_TRAIN:
+        full = FAM_MESH_TRAIN[name].get("depth")
+        out["train_gate"] = fam_train_gate(name, mesh, dev, label,
+                                           depth if cut else full)
+        if cut:
+            out["train_full"] = fam_train_gate(name, mesh, dev, label, full,
+                                               gate=False)
+    out["cost"] = fam_serve_cost(name, mesh, dev, label)
+    return out
+
+
+def phase_lm_mesh_families() -> dict:
+    """Phase 14: 14a-14f; none of the four kernels is launched."""
+    reset_launches()
+    prtu.dense_launches = render.full_launches = 0
+    dev = torch.device("cuda")
+    out = {}
+    for tag, name in FAM_MESH_ARCHS:
+        out[name] = timed_phase(f"lm-mesh-families {tag}", phase_fam_arch,
+                                tag, name, dev)
+        torch.cuda.empty_cache()
+    out["adafactor"] = timed_phase("lm-mesh-families 14e",
+                                   phase_fam_adafactor, dev)
+    out["resume"] = timed_phase("lm-mesh-families 14f", phase_fam_resume,
+                                dev)
+    launches = dict(launches_now(), prtu_cat_mask=prtu.dense_launches,
+                    blend_tiles=render.full_launches)
+    check(not any(launches.values()),
+          f"lm-mesh-families: the families' mesh path launched kernels "
+          f"{launches}")
     out["launches"] = launches
     return out
 
@@ -4467,6 +4859,16 @@ def lm_mesh_only(summary: dict, json_path) -> int:
     return 0
 
 
+def lm_mesh_families_only(summary: dict, json_path) -> int:
+    """Phase 14 alone. Prints the card line and the contract's last line."""
+    summary["lm_mesh_families"] = timed_phase("lm-mesh-families",
+                                              phase_lm_mesh_families)
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
 def ok_line() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4512,6 +4914,10 @@ def main() -> int:
     parser.add_argument("--lm-mesh-only", action="store_true",
                         help="run only the build and phase 13 (the dense "
                         "LM over a mesh of virtual shards of the card)")
+    parser.add_argument("--lm-mesh-families-only", action="store_true",
+                        help="run only the build and phase 14 (the MoE/MLA,"
+                        " SSM, hybrid and enc-dec families over a mesh of "
+                        "virtual shards of the card)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4546,6 +4952,8 @@ def main() -> int:
         return lm_train_only(summary, args.json)
     if args.lm_mesh_only:
         return lm_mesh_only(summary, args.json)
+    if args.lm_mesh_families_only:
+        return lm_mesh_families_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -4614,6 +5022,9 @@ def main() -> int:
     summary["lm_train"] = timed_phase("lm-train", phase_lm_train)
     torch.cuda.empty_cache()
     summary["lm_mesh"] = timed_phase("lm-mesh", phase_lm_mesh)
+    torch.cuda.empty_cache()
+    summary["lm_mesh_families"] = timed_phase("lm-mesh-families",
+                                              phase_lm_mesh_families)
     shard_rows = {"prtu_entry_cat_mask": summary["shards"]["kernels"]["k1"],
                   "blend_tiles_fused": summary["shards"]["kernels"]["k2"]}
 
@@ -4644,6 +5055,8 @@ def main() -> int:
                 train_launches=summary["train"]["serve"]["launches"][kname])
         kernels[-1]["lm_mesh_launches"] = summary["lm_mesh"]["launches"][
             kname]
+        kernels[-1]["lm_mesh_families_launches"] = summary[
+            "lm_mesh_families"]["launches"][kname]
         if kname == "prtu_entry_cat_mask":
             # Phase 10a: the render driver's run.
             kernels[-1].update(driver_launches=summary["driver"]["render"][

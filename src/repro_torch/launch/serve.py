@@ -15,6 +15,10 @@
                 starts from fresh caches sized prefill + decode, so the
                 decoded tokens do not attend to the prompt: the loop times
                 decode steps, it does not continue the prompt.
+                `--production-mesh` / `--multi-pod` place any arch on the
+                16 x 16 (2 x 16 x 16) production mesh of the visible CUDA
+                devices, which raises ValueError with the count on a
+                machine with fewer.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode render --frames 16
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
@@ -37,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import add_mesh_args, make_local_mesh, mesh_of
 
 
 def _sync(device: torch.device) -> None:
@@ -206,13 +210,7 @@ def run_lm(args, model=None, log=print) -> dict:
 
 
 def serve_lm(args) -> int:
-    try:
-        model = lm_model(args)
-    except NotImplementedError as e:        # a mesh larger than one device
-        print(f"serve: the LM is served on a one-device mesh only: {e}",
-              file=sys.stderr)
-        return 2
-    run_lm(args, model)
+    run_lm(args, lm_model(args, mesh_of(args)))
     return 0
 
 
@@ -238,6 +236,7 @@ def parser() -> argparse.ArgumentParser:
                     help="hold the parameters in this dtype (default: the "
                     "config's). bfloat16 keeps no float32 master copy: "
                     "deepseek-v2-lite-16b needs it to fit one 80 GB card")
+    add_mesh_args(ap)
     return ap
 
 

@@ -6,10 +6,10 @@ module's own: `make_train_step(model, opt_cfg)` returns
 `train_step(opt_state, batch) -> (opt_state, metrics)`, which leaves the
 updated parameters in `model` (copied in place, so the model serves what
 it trained). `mesh` is None or the model's own mesh; over a mesh of more
-than one position (the dense family) the parameters and the moments are
+than one position (any family) the parameters and the moments are
 `Sharded`, each microbatch is split over the data rows inside
 `model.loss`, and the optimizer sums replicated gradients before its
-update (`optim.adamw`).
+update (`optim.adamw`, `optim.adafactor`).
 
 The placements (`batch_shardings`, `opt_shardings`,
 `adafactor_shardings`, `cache_shardings`) are the reference's, as
@@ -18,8 +18,6 @@ The placements (`batch_shardings`, `opt_shardings`,
 a reader who looks for them, but nothing is compiled: each returns the
 step bound to the mesh's placements (`Step`) and its example arguments
 as meta tensors with their placements (`MetaArg`), for the dry-runs.
-Adafactor's placements are given; running it on shards comes with the
-MoE mesh slice (arctic, the one arch that uses it, is MoE).
 """
 from __future__ import annotations
 
@@ -153,7 +151,10 @@ def make_train_step(model: Model, opt_cfg, mesh=None, *, opt=None,
     (`moment_dtype`), then divided by their number, as the reference's
     `scan`. The optimizer (`cfg.optimizer`) then updates the parameters,
     which replace the module's in place. Over a mesh each microbatch is
-    split over the data rows (`Model.loss`).
+    split over the data rows (`Model.loss`), and its gradient's replicas
+    are summed (`adamw.sum_replicas`, the all-reduce) before it is
+    accumulated, as the reference's sharded step sums them in float32
+    before its accumulation dtype.
 
     A driver that takes its own step, as `launch.train`'s (AdamW on the
     whole batch, compressed), passes the optimizer module `opt`,
@@ -162,10 +163,6 @@ def make_train_step(model: Model, opt_cfg, mesh=None, *, opt=None,
     _check_step_mesh(model, mesh)
     cfg = model.cfg
     opt = opt or _opt_module(cfg)
-    if opt is adafactor and is_sharded(model.mesh):
-        raise NotImplementedError(
-            "Adafactor on sharded parameters (its row and column means over "
-            "sharded dimensions) comes with the MoE mesh slice")
     nmb = max(1, cfg.microbatches if microbatches is None else microbatches)
     acc_dtype = moment_dtype(cfg)
 
@@ -174,8 +171,14 @@ def make_train_step(model: Model, opt_cfg, mesh=None, *, opt=None,
         params = model.params()
         leaves = flatten(params)
         tensors = _tensors(leaves)
+        def summed(g):
+            """Each replicated block's gradient summed over its holders."""
+            return _tensors([adamw.sum_replicas(x)
+                             if isinstance(x, Sharded) else x
+                             for x in _repack(leaves, list(g))])
         if nmb == 1:
             loss, grads = grads_of(model, batch, tensors)
+            grads = summed(grads)
         else:
             grads = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
                      for p in tensors]
@@ -184,7 +187,8 @@ def make_train_step(model: Model, opt_cfg, mesh=None, *, opt=None,
                 mb = {k: v.reshape((nmb, v.shape[0] // nmb) + v.shape[1:])[i]
                       for k, v in batch.items()}
                 l, g = grads_of(model, mb, tensors)
-                grads = [a + b.to(acc_dtype) for a, b in zip(grads, g)]
+                grads = [a + b.to(acc_dtype)
+                         for a, b in zip(grads, summed(g))]
                 loss = loss + l
             grads = [g / nmb for g in grads]
             loss = loss / nmb

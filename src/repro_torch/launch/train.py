@@ -15,9 +15,11 @@ is `data.tokens.synthetic_batch` of (seed 0, step), so a resumed run
 sees the batches an uninterrupted one would. `--production-mesh` and
 `--multi-pod` build `launch.mesh.make_production_mesh` (16 x 16, or 2 x
 16 x 16 devices) over the visible CUDA devices, which raises ValueError
-with the count on a machine with fewer; on such a mesh the model is
+with the count on a machine with fewer; on such a mesh any arch is
 placed by the sharding rules, the step runs sharded, and checkpoints
-hold the gathered state.
+hold the gathered state. `--compress` on a sharded step raises
+ValueError: compressing a gradient split into shards is a slice of its
+own.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import tokens as data
 from repro_torch.distributed.fault import (FaultConfig, FaultManager,
                                            StragglerMonitor)
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import add_mesh_args, mesh_of
 from repro_torch.launch.serve import lm_model
 from repro_torch.launch.steps import (_tensors, make_train_step,
                                      moment_dtype)
@@ -56,22 +58,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--compress", default="none",
                     choices=["none", "topk", "int8"])
-    ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--production-mesh", action="store_true")
+    add_mesh_args(ap)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda)")
     # `serve.lm_model` builds the model; training keeps the arch's dtype.
     ap.set_defaults(param_dtype=None)
     return ap
-
-
-def mesh_of(args):
-    """The production mesh under `--production-mesh` / `--multi-pod`
-    (ValueError with the device count where there are too few), else
-    None (one device)."""
-    if args.production_mesh or args.multi_pod:
-        return make_production_mesh(multi_pod=args.multi_pod)
-    return None
 
 
 def make_step(model: Model, opt_cfg, comp_cfg):
@@ -81,8 +73,10 @@ def make_step(model: Model, opt_cfg, comp_cfg):
     the step). step(opt_state, batch) -> (opt_state, metrics)."""
     transform = None
     if comp_cfg.kind != "none" and is_sharded(model.mesh):
-        raise ValueError("--compress runs on one device; the sharded "
-                         "step takes uncompressed gradients")
+        raise ValueError("--compress runs on one device; compressing a "
+                         "gradient split into shards (its error feedback "
+                         "held per shard) comes with the slice that ports "
+                         "--compress over a mesh")
     if comp_cfg.kind != "none":
         residuals = init_residuals(model.params())
 

@@ -27,7 +27,7 @@ position computes all of them and reads the group its query heads use.
 The decode cache is sequence-sharded ("sp"): each position holds a block
 of the positions of every head, the new token's K/V go to the block that
 owns `pos`, and the blocks' partial softmaxes are combined by their
-log-sum-exp.
+log-sum-exp (`combine_blocks`, which MLA's latent cache shares).
 """
 from __future__ import annotations
 
@@ -253,25 +253,49 @@ def _qkv_tp(p, xs, cfg: ModelConfig, positions):
             for pm, x in zip(p, xs)]
 
 
-def attend_train_tp(p, xs, cfg: ModelConfig):
-    """Causal self-attention of one data row over its model positions: `p`
-    is a list of each position's weights, `xs` the replicated input.
-    Returns each position's partial output and its (k, v): its own head
-    block under a "model" rule, else all heads."""
+def _own_kv(k, v, cfg: ModelConfig, m: int, nm: int) -> tuple:
+    """The K/V heads position m's query heads read: all it holds under a
+    "model" rule, else its GQA groups' range of the whole set."""
+    if kv_logical(cfg) is not None:
+        return k, v
+    lo, hi = kv_range(cfg, m, nm)
+    return k[:, :, lo:hi], v[:, :, lo:hi]
+
+
+def attend_train_tp(p, xs, cfg: ModelConfig, causal: bool = True):
+    """Self-attention of one data row over its model positions (causal,
+    or bidirectional for the enc-dec's encoder): `p` is a list of each
+    position's weights, `xs` the replicated input. Returns each
+    position's partial output and its (k, v): its own head block under a
+    "model" rule, else all heads."""
     b, s, _ = xs[0].shape
     nm = len(xs)
     positions = torch.arange(s).expand(b, s)
     outs, kvs = [], []
     for m, (pm, (q, k, v)) in enumerate(zip(p, _qkv_tp(p, xs, cfg,
                                                        positions))):
-        kq, vq = k, v
-        if kv_logical(cfg) is None:
-            lo, hi = kv_range(cfg, m, nm)
-            kq, vq = k[:, :, lo:hi], v[:, :, lo:hi]
-        out = chunked_attention(q, kq, vq, cfg, causal=True)
+        kq, vq = _own_kv(k, v, cfg, m, nm)
+        out = chunked_attention(q, kq, vq, cfg, causal=causal)
         outs.append(_out_proj(out, pm["wo"]))
         kvs.append((k, v))
     return outs, kvs
+
+
+def cross_attend_tp(p, xs, enc, cfg: ModelConfig) -> list:
+    """The enc-dec's cross-attention of one data row: each position's
+    query heads (its block of "model") against K/V projected from the
+    encoder output `enc` (replicated at each position, as `enc_kv_from`
+    reads it gathered), no RoPE, bidirectional. Returns each position's
+    partial output."""
+    nm = len(xs)
+    outs = []
+    for m, (pm, x, e) in enumerate(zip(p, xs, enc)):
+        q = _proj(x, pm["wq"])
+        k, v = _own_kv(_proj(e, pm["wk"]), _proj(e, pm["wv"]), cfg, m, nm)
+        out = chunked_attention(q, k.to(q.dtype), v.to(q.dtype), cfg,
+                                causal=False)
+        outs.append(_out_proj(out, pm["wo"]))
+    return outs
 
 
 def cache_blocks(kvs, cfg: ModelConfig, devices) -> list:
@@ -334,9 +358,20 @@ def attend_decode_tp(p, xs, caches, pos: int, cfg: ModelConfig, devices):
         e = torch.exp(s - mx[..., None])
         parts.append((mx, torch.sum(e, dim=-1),
                       torch.einsum("bkgs,bskh->bkgh", e, v_r.float())))
-    outs = []
+    hq = hp // nm
+    return [_out_proj(o.to(q.dtype).reshape(b, 1, hp, hd)
+                      [:, :, m * hq:(m + 1) * hq], pm["wo"])
+            for m, (pm, q, o) in enumerate(zip(p, qs, combine_blocks(
+                parts, devices)))]
+
+
+def combine_blocks(parts, devices) -> list:
+    """The attention output over every block of an "sp" cache, at each
+    position: `parts[j]` is block j's (row max, sum of exps, exp-weighted
+    values), float32; they are combined by their log-sum-exp on each
+    device (once a device)."""
     made = {}
-    for m, (pm, dev) in enumerate(zip(p, devices)):
+    for dev in devices:
         if dev not in made:
             mxs = [x.to(dev) for x, _, _ in parts]
             top = torch.amax(torch.stack(mxs), 0)
@@ -346,9 +381,5 @@ def attend_decode_tp(p, xs, caches, pos: int, cfg: ModelConfig, devices):
                 den = l.to(dev) * w if den is None else den + l.to(dev) * w
                 t = o.to(dev) * w[..., None]
                 num = t if num is None else num + t
-            made[dev] = (num / den[..., None]).to(qs[m].dtype) \
-                .reshape(b, 1, hp, hd)
-        hq = hp // nm
-        out = made[dev][:, :, m * hq:(m + 1) * hq]
-        outs.append(_out_proj(out, pm["wo"]))
-    return outs
+            made[dev] = num / den[..., None]
+    return [made[d] for d in devices]

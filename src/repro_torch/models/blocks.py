@@ -17,8 +17,13 @@ residual stream of one data row (a list over the "model" positions):
 S, else sharded over d_model when it divides that, else replicated;
 `gathered` makes it replicated. A row-parallel output (a partial sum at
 each position) reaches the boundary by a reduce-scatter (`add_partial`).
-`dense_block_tp` runs one dense layer over every data row of the mesh,
-its weights gathered over the FSDP axes at use.
+Each `*_block_tp` runs one layer over every data row of the mesh, its
+weights gathered over the FSDP axes at use (inside the layer's
+checkpoint): `dense_block_tp` (also the enc-dec's encoder, bidirectional,
+and its decoder, with cross-attention), `ssm_block_tp`, `moe_block_tp`
+(MLA or GQA, the experts over "model"; also a first-k-dense layer); the
+`*_decode_block_tp` functions their decode steps, on replicated
+activations summed by all-reduce.
 """
 from __future__ import annotations
 
@@ -280,21 +285,43 @@ def row_params(g, row) -> dict:
     return tree_map(lambda ls: [ls[i] for i in row], g)
 
 
+def _devices(mesh, row) -> list:
+    return [mesh.flat_devices()[i] for i in row]
+
+
+def seq_blocks(x, nm: int) -> tuple:
+    """The "sp" blocks of `x` along its sequence (dimension 1)."""
+    if x.shape[1] % nm:
+        raise ValueError(f"a sequence of {x.shape[1]} cannot be split into "
+                         f"the {nm} model positions' blocks (\"sp\")")
+    return x.chunk(nm, 1)
+
+
 def dense_block_tp(lp, xs_rows, shape_rows, cfg: ModelConfig, mesh,
-                   with_kv: bool = False):
+                   with_kv: bool = False, causal: bool = True,
+                   enc_rows=None):
     """One dense layer over the data rows `xs_rows` (each a boundary-
     layout list over its model positions, of full shape
-    `shape_rows[r]`). Returns the rows' outputs and, with `with_kv`,
-    each row's per-position (k, v)."""
+    `shape_rows[r]`): causal self-attention (bidirectional for the
+    enc-dec's encoder, `causal=False`), then, with `enc_rows` (each row's
+    encoder output, replicated at its positions), the enc-dec decoder's
+    cross-attention, then the MLP. Returns the rows' outputs and, with
+    `with_kv`, each row's per-position (k, v)."""
     g = fsdp_gather(lp, mesh)
     outs, kvs = [], []
-    for row, xs, shape in zip(mesh.rows(), xs_rows, shape_rows):
-        devs = [mesh.flat_devices()[i] for i in row]
+    for r, (row, xs, shape) in enumerate(zip(mesh.rows(), xs_rows,
+                                             shape_rows)):
+        devs = _devices(mesh, row)
         p = row_params(g, row)
         h = normed(xs, p["ln1"], shape, cfg, devs)
         ys, kv = A.attend_train_tp(by_position(p["attn"], len(devs)), h,
-                                   cfg)
+                                   cfg, causal=causal)
         xs = add_partial(xs, ys, devs)
+        if enc_rows is not None:
+            h = normed(xs, p["lnx"], shape, cfg, devs)
+            xs = add_partial(xs, A.cross_attend_tp(
+                by_position(p["xattn"], len(devs)), h, enc_rows[r], cfg),
+                devs)
         h = normed(xs, p["ln2"], shape, cfg, devs)
         xs = add_partial(xs, L.mlp_apply_tp(p["mlp"], h, cfg, devs), devs)
         outs.append(xs)
@@ -303,22 +330,134 @@ def dense_block_tp(lp, xs_rows, shape_rows, cfg: ModelConfig, mesh,
 
 
 def dense_decode_block_tp(lp, xs_rows, caches_rows, pos: int,
-                          cfg: ModelConfig, mesh) -> list:
+                          cfg: ModelConfig, mesh, enc_rows=None) -> list:
     """One dense layer's decode over the data rows: `xs_rows[r]` the
     replicated (B, 1, D) input at each of row r's model positions,
-    `caches_rows[r]` their caches' blocks."""
+    `caches_rows[r]` their caches' blocks; with `enc_rows`, the enc-dec
+    decoder's cross-attention to each row's (gathered) encoder output."""
     g = fsdp_gather(lp, mesh)
     outs = []
-    for row, xs, cs in zip(mesh.rows(), xs_rows, caches_rows):
-        devs = [mesh.flat_devices()[i] for i in row]
+    for r, (row, xs, cs) in enumerate(zip(mesh.rows(), xs_rows,
+                                          caches_rows)):
+        devs = _devices(mesh, row)
         p = row_params(g, row)
-        h = [L.rmsnorm(x, w.to(x.dtype), cfg.norm_eps)
-             for x, w in zip(xs, p["ln1"])]
+        h = _norm_each(xs, p["ln1"], cfg)
         ys = A.attend_decode_tp(by_position(p["attn"], len(devs)), h, cs,
                                 pos, cfg, devs)
         xs = [x + y for x, y in zip(xs, D.all_reduce(ys, devs))]
-        h = [L.rmsnorm(x, w.to(x.dtype), cfg.norm_eps)
-             for x, w in zip(xs, p["ln2"])]
+        if enc_rows is not None:
+            h = _norm_each(xs, p["lnx"], cfg)
+            ys = A.cross_attend_tp(by_position(p["xattn"], len(devs)), h,
+                                   enc_rows[r], cfg)
+            xs = [x + y for x, y in zip(xs, D.all_reduce(ys, devs))]
+        h = _norm_each(xs, p["ln2"], cfg)
         ys = L.mlp_apply_tp(p["mlp"], h, cfg, devs)
         outs.append([x + y for x, y in zip(xs, D.all_reduce(ys, devs))])
     return outs
+
+
+def _norm_each(xs, w, cfg: ModelConfig) -> list:
+    """rmsnorm of a replicated row tensor at each position."""
+    return [L.rmsnorm(x, wm.to(x.dtype), cfg.norm_eps)
+            for x, wm in zip(xs, w)]
+
+
+def ssm_block_tp(lp, xs_rows, shape_rows, cfg: ModelConfig, mesh,
+                 with_state: bool = False):
+    """One Mamba2 layer over the data rows (`mamba2.mamba_train_tp`).
+    Returns the rows' outputs and, with `with_state`, each row's
+    per-position (state of its heads, conv tail of its channels)."""
+    g = fsdp_gather(lp, mesh)
+    outs, states = [], []
+    for row, xs, shape in zip(mesh.rows(), xs_rows, shape_rows):
+        devs = _devices(mesh, row)
+        p = row_params(g, row)
+        h = normed(xs, p["ln"], shape, cfg, devs)
+        ys = S.mamba_train_tp(p["mixer"], h, cfg, devs, with_state)
+        if with_state:
+            ys, st = ys
+            states.append(st)
+        outs.append(add_partial(xs, ys, devs))
+    return outs, states
+
+
+def ssm_decode_block_tp(lp, xs_rows, caches_rows, cfg: ModelConfig,
+                        mesh) -> list:
+    """One Mamba2 layer's decode over the data rows; `caches_rows[r][m]`
+    is the MambaCache of row r's position m, written in place."""
+    g = fsdp_gather(lp, mesh)
+    outs = []
+    for row, xs, cs in zip(mesh.rows(), xs_rows, caches_rows):
+        devs = _devices(mesh, row)
+        p = row_params(g, row)
+        ys = S.mamba_decode_tp(p["mixer"], _norm_each(xs, p["ln"], cfg), cs,
+                               cfg, devs)
+        outs.append([x + y for x, y in zip(xs, D.all_reduce(ys, devs))])
+    return outs
+
+
+def _attend_tp(p, hs, cfg: ModelConfig):
+    """MLA or GQA self-attention of an MoE-family layer over one row's
+    positions: each position's partial output and its cache part (the
+    whole latent under MLA, else its (k, v))."""
+    fn = M.mla_train_tp if cfg.use_mla else A.attend_train_tp
+    return fn(by_position(p, len(hs)), hs, cfg)
+
+
+def moe_block_tp(lp, xs_rows, shape_rows, cfg: ModelConfig, mesh,
+                 split: bool, with_cache: bool = False):
+    """One MoE-family layer over the data rows: the attention per row, then
+    the experts over every row at once (`moe.moe_apply_tp`: the dispatch
+    groups are the batch's, `split` says whether the rows split it), or
+    the dense MLP of a first-k-dense layer (`lp` without "moe"). Returns
+    the rows' outputs, the layer's aux (None for a dense layer) and, with
+    `with_cache`, each row's per-position cache part."""
+    g = fsdp_gather(lp, mesh)
+    rows = mesh.rows()[:len(xs_rows)]
+    ps = [row_params(g, row) for row in rows]
+    devs_rows = [_devices(mesh, row) for row in rows]
+    mid, hs_rows, caches = [], [], []
+    for p, xs, shape, devs in zip(ps, xs_rows, shape_rows, devs_rows):
+        h = normed(xs, p["ln1"], shape, cfg, devs)
+        ys, cache = _attend_tp(p["attn"], h, cfg)
+        xs = add_partial(xs, ys, devs)
+        mid.append(xs)
+        hs_rows.append(normed(xs, p["ln2"], shape, cfg, devs))
+        caches.append(cache if with_cache else None)
+    aux = None
+    if "moe" in lp:
+        ys_rows, aux, _ = E.moe_apply_tp([p["moe"] for p in ps], hs_rows,
+                                         cfg, devs_rows, split)
+    else:
+        ys_rows = [L.mlp_apply_tp(p["mlp"], h, cfg, devs)
+                   for p, h, devs in zip(ps, hs_rows, devs_rows)]
+    outs = [add_partial(xs, ys, devs)
+            for xs, ys, devs in zip(mid, ys_rows, devs_rows)]
+    return outs, aux, caches
+
+
+def moe_decode_block_tp(lp, xs_rows, caches_rows, pos: int,
+                        cfg: ModelConfig, mesh, split: bool) -> list:
+    """An MoE-family layer's decode over the data rows: MLA or GQA against
+    each row's "sp" cache blocks, then the experts over every row at once
+    (or a first-k-dense layer's MLP)."""
+    g = fsdp_gather(lp, mesh)
+    rows = mesh.rows()[:len(xs_rows)]
+    ps = [row_params(g, row) for row in rows]
+    devs_rows = [_devices(mesh, row) for row in rows]
+    mid, hs_rows = [], []
+    for p, xs, cs, devs in zip(ps, xs_rows, caches_rows, devs_rows):
+        h = _norm_each(xs, p["ln1"], cfg)
+        fn = M.mla_decode_tp if cfg.use_mla else A.attend_decode_tp
+        ys = fn(by_position(p["attn"], len(devs)), h, cs, pos, cfg, devs)
+        xs = [x + y for x, y in zip(xs, D.all_reduce(ys, devs))]
+        mid.append(xs)
+        hs_rows.append(_norm_each(xs, p["ln2"], cfg))
+    if "moe" in lp:
+        ys_rows = E.moe_apply_tp([p["moe"] for p in ps], hs_rows, cfg,
+                                 devs_rows, split)[0]
+    else:
+        ys_rows = [L.mlp_apply_tp(p["mlp"], h, cfg, devs)
+                   for p, h, devs in zip(ps, hs_rows, devs_rows)]
+    return [[x + y for x, y in zip(xs, D.all_reduce(ys, devs))]
+            for xs, ys, devs in zip(mid, ys_rows, devs_rows)]

@@ -122,35 +122,37 @@ def _take(pieces, lo: int, hi: int, dim: int, device):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
-def local_wi(wi_pieces, cfg: ModelConfig, devices) -> list:
-    """Each model position's up projection. The stored layout is the
-    rule's, (d, 2f) split into contiguous column blocks, so under SwiGLU
-    block m holds part of u or of g only; position m computes with
-    [u_m | g_m] (columns [m f/M, (m+1) f/M) of u and of g), read from the
-    positions that hold them. relu2's block m is its own."""
-    if cfg.mlp_act != "swiglu":
-        return list(wi_pieces)
+def paired_blocks(pieces, devices, what: str = "the SwiGLU pairing") -> list:
+    """Each model position's block of a weight whose last dimension is two
+    halves [a | b] of width f each, stored as the rule places it: split
+    into contiguous column blocks, so that block m holds part of a or of b
+    only. Position m computes with [a_m | b_m] (columns [m f/M, (m+1) f/M)
+    of a and of b), read from the positions that hold them: SwiGLU's
+    [u | g], the shared experts' [u | g], the SSM's in_proj [x | z]."""
     nm = len(devices)
-    f = wi_pieces[0].shape[-1] * nm // 2
+    f = pieces[0].shape[-1] * nm // 2
     if f % nm:
-        raise ValueError(f"d_ff {f} is not divided by the {nm} model "
-                         "shards, which the SwiGLU pairing needs")
+        raise ValueError(f"a half of width {f} is not divided by the {nm} "
+                         f"model shards, which {what} needs")
     fl = f // nm
-    return [torch.cat([_take(wi_pieces, m * fl, (m + 1) * fl, -1, dev),
-                       _take(wi_pieces, f + m * fl, f + (m + 1) * fl, -1,
+    return [torch.cat([_take(pieces, m * fl, (m + 1) * fl, -1, dev),
+                       _take(pieces, f + m * fl, f + (m + 1) * fl, -1,
                              dev)], -1)
             for m, dev in enumerate(devices)]
 
 
-def mlp_apply_tp(p, xs, cfg: ModelConfig, devices) -> list:
+def mlp_apply_tp(p, xs, cfg: ModelConfig, devices, act=None) -> list:
     """Tensor-parallel MLP of one data row: `p` has "wi" and "wo" as lists
     of the model positions' pieces, `xs` the replicated input at each;
-    returns each position's partial output (the sum is the MLP's)."""
-    wis = local_wi(p["wi"], cfg, devices)
+    returns each position's partial output (the sum is the MLP's). `act`
+    overrides `cfg.mlp_act` (the MoE's shared experts are SwiGLU)."""
+    act = act or cfg.mlp_act
+    wis = paired_blocks(p["wi"], devices) if act == "swiglu" \
+        else list(p["wi"])
     out = []
     for x, wi, wo in zip(xs, wis, p["wo"]):
         h = x @ wi.to(x.dtype)
-        if cfg.mlp_act == "swiglu":
+        if act == "swiglu":
             u, g = torch.chunk(h, 2, dim=-1)
             h = u * silu(g)
         else:

@@ -16,6 +16,15 @@ cast to the activations' dtype sits where the reference writes it (the
 intra-chunk weights, the state weights, the scan carry, the inter-chunk
 decay). The reference's three-operand
 einsums are contracted in the pairs jax's `einsum` picks for them.
+
+Over a mesh (`*_tp`, one data row; lists hold one entry per "model"
+position) the heads are split over "model", as the reference's rules
+place d_inner, dt_proj's columns and the per-head vectors: in_proj's
+columns [x | z] are paired per position (`layers.paired_blocks`),
+bc_proj is replicated (one group), each position runs the SSD of its
+heads alone, the gated norm sums its squares over "model", and out_proj
+is row-parallel. The decode caches (conv channels, state heads) are per
+head, so each position updates its own.
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import silu
+from repro_torch.distributed import sharding as D
+from repro_torch.models.layers import paired_blocks, silu
 from repro_torch.models.pspec import PSpec
 
 D_CONV = 4
@@ -172,21 +182,28 @@ def _mixer_inputs(p, x):
     return xin, z, B, C, dt
 
 
+def _scan_heads(p, xin, B, C, dt, cfg: ModelConfig, heads: int):
+    """The conv, SSD and skip of `heads` heads (all of them, or one model
+    position's block): (y (B, L, heads·P) before the gated norm, the
+    final SSD state, the conv's trailing D_CONV - 1 inputs)."""
+    b, l, _ = xin.shape
+    dt_x = xin.dtype
+    conv_tail = xin[:, -(D_CONV - 1):, :]
+    xin = _conv_causal(xin, p["conv_w"].to(dt_x), p["conv_b"].to(dt_x))
+    xh = xin.reshape(b, l, heads, cfg.ssm_head_dim)
+    y, st = ssd_chunked(xh, dt, p["a_log"], B.float(), C.float(),
+                        cfg.ssm_chunk)
+    y = y + xh * p["d_skip"].to(dt_x)[None, None, :, None]
+    return y.reshape(b, l, heads * cfg.ssm_head_dim), st, conv_tail
+
+
 def mamba_train(p, x, cfg: ModelConfig, with_state: bool = False):
     """x: (B, L, D) -> (B, L, D); with `with_state`, also the final SSD
     state and the conv's trailing D_CONV - 1 inputs, both bf16 (the
     reference's `Model._mamba_with_state`, the prefill of a decode
     cache)."""
-    b, l, _ = x.shape
-    h, pd = cfg.ssm_heads, cfg.ssm_head_dim
     xin, z, B, C, dt = _mixer_inputs(p, x)
-    conv_tail = xin[:, -(D_CONV - 1):, :]
-    xin = _conv_causal(xin, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
-    xh = xin.reshape(b, l, h, pd)
-    y, st = ssd_chunked(xh, dt, p["a_log"], B.float(), C.float(),
-                        cfg.ssm_chunk)
-    y = y + xh * p["d_skip"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(b, l, h * pd)
+    y, st, conv_tail = _scan_heads(p, xin, B, C, dt, cfg, cfg.ssm_heads)
     y = _gated_norm(y, z, p["norm_w"].to(x.dtype), cfg.norm_eps)
     out = y @ p["out_proj"].to(x.dtype)
     if with_state:
@@ -208,13 +225,13 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
                            cfg.ssm_state), dtype=dtype, device=device))
 
 
-def mamba_decode(p, x, cache: MambaCache, cfg: ModelConfig):
-    """x: (B, 1, D) one token; an O(1) state update written into the
-    cache's tensors in place."""
-    b = x.shape[0]
-    h, pd = cfg.ssm_heads, cfg.ssm_head_dim
-    dt_x = x.dtype
-    xin, z, B, C, dt = _mixer_inputs(p, x)
+def _step_heads(p, xin, B, C, dt, cache: MambaCache, cfg: ModelConfig,
+                heads: int):
+    """One decode step of `heads` heads (all, or one model position's
+    block) against their cache, written in place: y (B, 1, heads·P)
+    before the gated norm."""
+    b = xin.shape[0]
+    dt_x = xin.dtype
     window = torch.cat([cache.conv.to(dt_x), xin], dim=1)
     conv = sum(window[:, i] * p["conv_w"][i].to(dt_x)
                for i in range(D_CONV))
@@ -222,15 +239,98 @@ def mamba_decode(p, x, cache: MambaCache, cfg: ModelConfig):
     dt = dt[:, 0]                                         # (B, H)
     a = -torch.exp(p["a_log"].float())
     dec = torch.exp(dt * a)                               # (B, H)
-    xh = xc[:, 0].reshape(b, h, pd)
+    xh = xc[:, 0].reshape(b, heads, cfg.ssm_head_dim)
     upd = (dt.to(dt_x)[:, :, None] * xh)[..., None] \
         * B[:, 0].to(dt_x)[:, None, None, :]
     state = cache.state.to(dt_x) * dec[:, :, None, None].to(dt_x) + upd
     y = torch.einsum("bn,bhpn->bhp", C[:, 0].to(dt_x), state)
     y = y + xh * p["d_skip"].to(dt_x)[None, :, None]
-    y = y.reshape(b, 1, h * pd)
-    y = _gated_norm(y, z, p["norm_w"].to(dt_x), cfg.norm_eps)
-    out = y @ p["out_proj"].to(dt_x)
     cache.conv.copy_(window[:, 1:])
     cache.state.copy_(state)
-    return out, cache
+    return y.reshape(b, 1, heads * cfg.ssm_head_dim)
+
+
+def mamba_decode(p, x, cache: MambaCache, cfg: ModelConfig):
+    """x: (B, 1, D) one token; an O(1) state update written into the
+    cache's tensors in place."""
+    xin, z, B, C, dt = _mixer_inputs(p, x)
+    y = _step_heads(p, xin, B, C, dt, cache, cfg, cfg.ssm_heads)
+    y = _gated_norm(y, z, p["norm_w"].to(x.dtype), cfg.norm_eps)
+    return y @ p["out_proj"].to(x.dtype), cache
+
+
+# --- over a mesh ------------------------------------------------------------
+
+def local_heads(cfg: ModelConfig, nm: int) -> int:
+    """The SSM heads each of `nm` model positions holds; ValueError unless
+    `nm` divides them (the blocks of d_inner, of dt_proj's columns and of
+    the per-head vectors must name the same whole heads)."""
+    if cfg.ssm_heads % nm:
+        raise ValueError(f"{cfg.name}: {nm} model shards do not divide its "
+                         f"{cfg.ssm_heads} SSM heads; each position's block "
+                         "of d_inner must hold whole heads")
+    return cfg.ssm_heads // nm
+
+
+def _mixer_inputs_tp(p, xs, cfg: ModelConfig, devices) -> list:
+    """Each model position's (x_m, z_m, B, C, dt_m): in_proj's columns
+    paired as [x_m | z_m] (`layers.paired_blocks`), dt over its heads, B
+    and C whole (one group, replicated)."""
+    local_heads(cfg, len(devices))
+    wxz = paired_blocks(p["in_proj"], devices, "the SSM's in_proj [x | z]")
+    out = []
+    for m, (x, w) in enumerate(zip(xs, wxz)):
+        xin, z = torch.chunk(x @ w.to(x.dtype), 2, dim=-1)
+        B, C = torch.chunk(x @ p["bc_proj"][m].to(x.dtype), 2, dim=-1)
+        dt = softplus(x @ p["dt_proj"][m].to(x.dtype)
+                      + p["dt_bias"][m].to(x.dtype)).float()
+        out.append((xin, z, B, C, dt))
+    return out
+
+
+def _gated_norm_tp(ys, zs, ws, cfg: ModelConfig, devices) -> list:
+    """`_gated_norm` over d_inner split across the model positions: the
+    local sums of squares summed over "model" before the rsqrt."""
+    gs = [y * silu(z) for y, z in zip(ys, zs)]
+    sq = D.all_reduce([torch.sum(torch.square(g.float()), -1, keepdim=True)
+                       for g in gs], devices)
+    return [(g * torch.rsqrt(s / cfg.d_inner + cfg.norm_eps).to(g.dtype))
+            * w.to(g.dtype) for g, s, w in zip(gs, sq, ws)]
+
+
+def mamba_train_tp(p, xs, cfg: ModelConfig, devices,
+                   with_state: bool = False):
+    """The mixer of one data row over its model positions: `p` maps each
+    weight to the positions' pieces (FSDP-gathered), `xs` is the
+    replicated input. Each position runs the SSD of its heads with no
+    communication; out_proj is row-parallel. Returns each position's
+    partial output and, with `with_state`, its (state of its heads, conv
+    tail of its channels), bf16."""
+    hl = local_heads(cfg, len(devices))
+    ys, zs, states = [], [], []
+    for m, (xin, z, B, C, dt) in enumerate(_mixer_inputs_tp(p, xs, cfg,
+                                                            devices)):
+        pm = {k: v[m] for k, v in p.items()}
+        y, st, tail = _scan_heads(pm, xin, B, C, dt, cfg, hl)
+        ys.append(y)
+        zs.append(z)
+        states.append((st.to(torch.bfloat16), tail.to(torch.bfloat16)))
+    hs = _gated_norm_tp(ys, zs, p["norm_w"], cfg, devices)
+    outs = [h @ w.to(h.dtype) for h, w in zip(hs, p["out_proj"])]
+    return (outs, states) if with_state else outs
+
+
+def mamba_decode_tp(p, xs, caches, cfg: ModelConfig, devices) -> list:
+    """One decode step of one data row: `caches[m]` is position m's
+    MambaCache (its channels of the conv window, its heads of the state),
+    written in place; these are per head, so no block needs another's.
+    Returns each position's partial output."""
+    hl = local_heads(cfg, len(devices))
+    ys, zs = [], []
+    for m, ((xin, z, B, C, dt), c) in enumerate(zip(
+            _mixer_inputs_tp(p, xs, cfg, devices), caches)):
+        pm = {k: v[m] for k, v in p.items()}
+        ys.append(_step_heads(pm, xin, B, C, dt, c, cfg, hl))
+        zs.append(z)
+    hs = _gated_norm_tp(ys, zs, p["norm_w"], cfg, devices)
+    return [h @ w.to(h.dtype) for h, w in zip(hs, p["out_proj"])]

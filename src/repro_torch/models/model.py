@@ -58,7 +58,7 @@ Decode caches are written in place and carry `pos` as a Python int; a
 decode past an attention cache's length raises before anything is
 written.
 
-Over a mesh (the dense family; `check_mesh`): the parameters are held as
+Over a mesh (every family; `check_mesh`): the parameters are held as
 `distributed.sharding.Sharded` pieces, placed by `shardings()` (the
 reference's rules, `models.pspec.shardings`), and drawn as on one device
 then placed, so a sharded model has an unsharded one's weights.
@@ -68,10 +68,17 @@ rows of the mesh when they divide it and it holds more than one
 sequence, else every row holds all of it (`loss` and `forward` then run
 row 0 only, the others would repeat it); each row runs the layers
 tensor-parallel over its "model" positions, the weights gathered over
-the FSDP axes at use, inside each layer's checkpoint. Decode caches are
-`Sharded` by `cache_logical` (sequence over "model"). `forward`,
-`prefill` and `decode_step` return whole logits on the primary device.
-A mesh with one device runs the one-device code.
+the FSDP axes at use, inside each layer's checkpoint (the hybrid's whole
+group with its shared block, whose gradient so sums over the groups).
+Per family: attention heads, the MLP hidden and the vocab over "model"
+(the dense blocks, the enc-dec's encoder, decoder and cross-attention);
+the MoE's experts over "model", its dispatch groups the whole batch's
+(`moe.moe_apply_tp`), MLA's heads over "model" with the latent whole at
+each position; the SSM's heads (its d_inner) over "model". Decode
+caches are `Sharded` by `cache_logical`: attention and latent caches
+over the sequence ("sp", combined by log-sum-exp), SSM caches over the
+heads. `forward`, `prefill` and `decode_step` return whole logits on the
+primary device. A mesh with one device runs the one-device code.
 """
 from __future__ import annotations
 
@@ -117,15 +124,12 @@ def is_sharded(mesh) -> bool:
 
 
 def check_mesh(mesh, cfg: ModelConfig) -> None:
-    """Accept None, a one-device mesh, or any mesh for the dense family;
-    raise NotImplementedError for another family over a larger mesh."""
-    if is_sharded(mesh) and cfg.family not in DENSE_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family runs on one device; a "
-            f"mesh of shape {dict(mesh.shape)} needs its sharding (MoE "
-            "experts over model, MLA, the SSM's d_inner, the hybrid's "
-            "shared block, cross-attention), the next LM mesh slice. The "
-            "dense family runs over any mesh")
+    """Accept None or any mesh for every family; raise ValueError where
+    the model positions do not divide an SSM's heads (its blocks of
+    d_inner must hold whole heads). Another dimension the rules cannot
+    split is refused when the parameters are placed."""
+    if is_sharded(mesh) and cfg.family in ("ssm", "hybrid"):
+        S.local_heads(cfg, mesh.shape["model"])
 
 
 def _resolve_device(device) -> torch.device:
@@ -236,8 +240,7 @@ def decoder_decode_block(p, x, cache, enc_out, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 class Model(nn.Module):
-    """An LM of any registry family on one device, or of the dense family
-    over a mesh.
+    """An LM of any registry family on one device or over a mesh.
 
     device: where the parameters are drawn (default "cuda", or the
         mesh's primary device); "meta" lays out shapes without drawing.
@@ -714,7 +717,7 @@ class Model(nn.Module):
         return x
 
 
-    # ---- over a mesh (dense family) ----
+    # ---- over a mesh ----
     def _tp_rows(self, batch) -> tuple:
         """(each data row's batch, whether the batch was split): split
         over the rows when they divide it and B > 1, else whole at each."""
@@ -730,36 +733,132 @@ class Model(nn.Module):
         fd = self.mesh.flat_devices()
         return [fd[i] for i in self.mesh.rows()[r]]
 
-    def _tp_hidden(self, p, rows, with_kv: bool = False):
-        """The layers over `rows` (row batches, from row 0): (each row's
-        boundary-layout output, each row's (B_r, S, D) shape, per layer
-        each row's per-position (k, v) with `with_kv`)."""
+    def _tp_inputs(self, p, rows, key: str) -> tuple:
+        """Each row's input `key` ("tokens" looked up in the table,
+        "embeds" or "enc_embeds" as given) in the boundary layout, in the
+        compute dtype, and each row's (B_r, S, D) shape."""
         cfg, mesh = self.cfg, self.mesh
         dt = _compute_dtype(cfg)
-        g = B.fsdp_gather(p["embed"], mesh)
+        g = B.fsdp_gather(p["embed"], mesh) if key == "tokens" else None
         xs_rows, shapes = [], []
         for r, rb in enumerate(rows):
             devs = self._tp_devices(r)
-            if "embeds" in rb:
-                xs = [rb["embeds"].to(dev) for dev in devs]
-            else:
+            if key == "tokens":
                 xs = L.embed_tokens_tp(B.row_params(g, mesh.rows()[r]),
                                        rb["tokens"], cfg, devs)
+            else:
+                xs = [rb[key].to(dev) for dev in devs]
             xs = [x.to(dt) for x in xs]
             shapes.append(xs[0].shape)
             xs_rows.append(B.boundary(xs, devs))
+        return xs_rows, shapes
+
+    def _tp_hidden(self, p, rows, split: bool, with_cache: bool = False):
+        """The layers over `rows` (row batches, from row 0; `split` says
+        whether they split the batch): (each row's boundary-layout
+        output, each row's (B, S, D) shape, aux, and with `with_cache`
+        the family's cache parts, per layer each row's per-position
+        values). Under autograd each layer (the hybrid's group with its
+        shared block) is checkpointed, its weights gathered inside."""
+        cfg, mesh = self.cfg, self.mesh
+        fam = cfg.family
+        aux = self._zero()
+        parts: Dict[str, list] = {}
+        if fam == "encdec":
+            enc, _ = self._tp_encode(p, rows)
+            key = "tokens"
+        else:
+            enc = None
+            key = "embeds" if "embeds" in rows[0] else "tokens"
+        xs_rows, shapes = self._tp_inputs(p, rows, key)
+
+        def dense(lp, xs_rows):
+            return B.dense_block_tp(lp, xs_rows, shapes, cfg, mesh,
+                                    enc_rows=enc)[0]
+
+        def ssm(lp, xs_rows):
+            return B.ssm_block_tp(lp, xs_rows, shapes, cfg, mesh)[0]
+
+        def moe(lp, xs_rows):
+            return B.moe_block_tp(lp, xs_rows, shapes, cfg, mesh, split)[:2]
+
+        def group(gp, shared, xs_rows):
+            for lp in B.unstack_sharded(gp):
+                xs_rows = ssm(lp, xs_rows)
+            return dense(shared, xs_rows)
+
+        def ssm_stack(stacked, xs_rows):
+            states = []
+            for lp in B.unstack_sharded(stacked):
+                if with_cache:
+                    xs_rows, st = B.ssm_block_tp(lp, xs_rows, shapes, cfg,
+                                                 mesh, with_state=True)
+                    states.append(st)
+                else:
+                    xs_rows = B.remat_call(ssm, lp, xs_rows)
+            return xs_rows, states
+
+        if fam in DENSE_FAMILIES or fam == "encdec":
+            for lp in B.unstack_sharded(p["layers"]):
+                if with_cache:
+                    xs_rows, kv = B.dense_block_tp(lp, xs_rows, shapes, cfg,
+                                                   mesh, with_kv=True,
+                                                   enc_rows=enc)
+                    parts.setdefault("kv", []).append(kv)
+                else:
+                    xs_rows = B.remat_call(dense, lp, xs_rows)
+            parts["enc"] = enc
+        elif fam == "moe":
+            auxs = []
+            for key in ("first", "layers"):
+                if key not in p:
+                    continue
+                for lp in B.unstack_sharded(p[key]):
+                    if with_cache:
+                        xs_rows, a, c = B.moe_block_tp(
+                            lp, xs_rows, shapes, cfg, mesh, split,
+                            with_cache=True)
+                        parts.setdefault(key, []).append(c)
+                    else:
+                        xs_rows, a = B.remat_call(moe, lp, xs_rows)
+                    if a is not None:
+                        auxs.append(a)
+            aux = torch.sum(torch.stack(auxs))
+        elif fam == "ssm":
+            xs_rows, parts["ssm"] = ssm_stack(p["layers"], xs_rows)
+        else:                                               # hybrid
+            for gp in B.unstack_sharded(p["groups"]):
+                if with_cache:
+                    xs_rows, st = ssm_stack(gp, xs_rows)
+                    parts.setdefault("groups", []).append(st)
+                    xs_rows, kv = B.dense_block_tp(
+                        p["shared_attn"], xs_rows, shapes, cfg, mesh,
+                        with_kv=True)
+                    parts.setdefault("attn_kv", []).append(kv)
+                else:
+                    xs_rows = B.remat_call(group, gp, p["shared_attn"],
+                                           xs_rows)
+            if "tail" in p:
+                xs_rows, parts["tail"] = ssm_stack(p["tail"], xs_rows)
+        return xs_rows, shapes, aux, parts
+
+    def _tp_encode(self, p, rows) -> tuple:
+        """The enc-dec's encoder over `rows` (bidirectional dense layers,
+        its input in the boundary layout), then `ln_enc`: each row's
+        output replicated at its model positions, and its shape."""
+        cfg, mesh = self.cfg, self.mesh
+        xs_rows, shapes = self._tp_inputs(p, rows, "enc_embeds")
 
         def layer(lp, xs_rows):
-            return B.dense_block_tp(lp, xs_rows, shapes, cfg, mesh)[0]
-        kvs = []
-        for lp in B.unstack_sharded(p["layers"]):
-            if with_kv:
-                xs_rows, kv = B.dense_block_tp(lp, xs_rows, shapes, cfg,
-                                               mesh, with_kv=True)
-                kvs.append(kv)
-            else:
-                xs_rows = B.remat_call(layer, lp, xs_rows)
-        return xs_rows, shapes, kvs
+            return B.dense_block_tp(lp, xs_rows, shapes, cfg, mesh,
+                                    causal=False)[0]
+        for lp in B.unstack_sharded(p["encoder"]):
+            xs_rows = B.remat_call(layer, lp, xs_rows)
+        g = B.fsdp_gather(dict(ln_enc=p["ln_enc"]), mesh)
+        return [B.normed(xs, B.row_params(g, mesh.rows()[r])["ln_enc"],
+                         shape, cfg, self._tp_devices(r))
+                for r, (xs, shape) in enumerate(zip(xs_rows, shapes))], \
+            shapes
 
     def _tp_logits(self, p, xs_rows, shapes, last: bool = False) -> list:
         """Each row's vocab-sharded logits (a list over its positions), of
@@ -788,103 +887,256 @@ class Model(nn.Module):
         rows, split = self._tp_rows(batch)
         rows = rows if split else rows[:1]
         p = self.compute_params()
-        xs_rows, shapes, _ = self._tp_hidden(p, rows)
+        xs_rows, shapes, aux, _ = self._tp_hidden(p, rows, split)
         logits = self._tp_whole(self._tp_logits(p, xs_rows, shapes), split)
-        return logits, self._zero()
+        return logits, aux
 
     def _tp_loss(self, batch):
         """The masked NLL summed over the rows' vocab shards, over the
-        batch's global count of unmasked labels."""
+        batch's global count of unmasked labels, + 0.01 aux."""
         rows, split = self._tp_rows(batch)
         rows = rows if split else rows[:1]
         p = self.compute_params()
-        xs_rows, shapes, _ = self._tp_hidden(p, rows)
+        xs_rows, shapes, aux, _ = self._tp_hidden(p, rows, split)
         dev = self.mesh.primary
         total = None
         for rb, ls in zip(rows, self._tp_logits(p, xs_rows, shapes)):
             nll = L.softmax_xent_tp(ls, rb["labels"]).to(dev)
             total = nll if total is None else total + nll
         count = torch.clamp(torch.sum(batch["labels"].to(dev) >= 0), min=1)
-        return total / count + 0.01 * self._zero()
+        return total / count + 0.01 * aux
+
+    def _tp_cache(self, per_layer, logical, blocks_of=None, dtype=None,
+                  shape=None, stacked: bool = True):
+        """A `Sharded` cache leaf from `per_layer[i][r]`, layer i's value
+        of data row r: a list over its model positions (or whatever
+        `blocks_of(value, devices)` makes one from), stacked over the
+        layers at each position (`per_layer` is one layer's value and
+        nothing is stacked without `stacked`), cast to `dtype`, placed by
+        `logical` (checked against the whole `shape` when given)."""
+        mesh = self.mesh
+        sh = D.named(mesh, logical)
+        if shape is not None:
+            sh.check(shape)
+        blocks = [[] for _ in range(mesh.size)]
+        for layer in per_layer if stacked else [per_layer]:
+            for r, val in enumerate(layer):
+                devs = self._tp_devices(r)
+                vals = val if blocks_of is None else blocks_of(val, devs)
+                for i, v in zip(mesh.rows()[r], vals):
+                    blocks[i].append(v)
+        pieces = [torch.stack(bl) if stacked else bl[0] for bl in blocks]
+        return D.Sharded([x if dtype is None else x.to(dtype)
+                          for x in pieces], sh)
+
+    def _tp_kv_pair(self, per_layer, logical, shape, dtype):
+        """The "sp" (k, v) caches of `dense_block_tp`'s per-row (k, v)."""
+        cfg = self.cfg
+
+        def blocks(i):
+            return lambda row_kv, devs: [kv[i] for kv in A.cache_blocks(
+                row_kv, cfg, devs)]
+        return tuple(self._tp_cache(per_layer, logical, blocks(i), dtype,
+                                    shape) for i in range(2))
 
     def _tp_prefill(self, batch):
         """Every row runs (a batch it does not split is repeated at each
-        row, as its caches are); the caches are `Sharded`, their
-        sequence over "model"."""
-        cfg, mesh = self.cfg, self.mesh
+        row, as its caches are); the caches are `Sharded` by
+        `cache_logical`, the batch over "dp" only where it was split."""
+        cfg = self.cfg
         rows, split = self._tp_rows(batch)
         p = self.compute_params()
-        xs_rows, shapes, kvs = self._tp_hidden(p, rows, with_kv=True)
-        b, s = next(iter(batch.values())).shape[:2]
-        kv5 = (None, "dp" if split else None, "sp", None, None)
-        sh = D.named(self.mesh, kv5)
-        sh.check((cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim_))
-        blocks = [[] for _ in range(mesh.size)]    # per position, per layer
-        for layer_kvs in kvs:
-            for r, row_kv in enumerate(layer_kvs):
-                devs = self._tp_devices(r)
-                for i, kv in zip(mesh.rows()[r],
-                                 A.cache_blocks(row_kv, cfg, devs)):
-                    blocks[i].append(kv)
-        k = D.Sharded([torch.stack([kv[0] for kv in bl]).to(torch.bfloat16)
-                       for bl in blocks], sh)
-        v = D.Sharded([torch.stack([kv[1] for kv in bl]).to(torch.bfloat16)
-                       for bl in blocks], sh)
+        xs_rows, shapes, _, parts = self._tp_hidden(p, rows, split,
+                                                    with_cache=True)
+        b, s = batch.get("tokens", next(iter(batch.values()))).shape[:2]
+        bl = "dp" if split else None
+        bf16 = torch.bfloat16
+        fam = cfg.family
+        kv5 = (None, bl, "sp", None, None)
+        state = (None, bl, "model", None, None)
+        conv = (None, bl, None, "model")
+
+        def kv_shape(n):
+            return (n, b, s, cfg.num_kv_heads, cfg.head_dim_)
+        if fam in DENSE_FAMILIES:
+            caches = dict(kv=self._tp_kv_pair(parts["kv"], kv5, kv_shape(
+                cfg.num_layers), bf16))
+        elif fam == "encdec":
+            enc = parts["enc"]
+            caches = dict(
+                self_kv=self._tp_kv_pair(parts["kv"], kv5,
+                                         kv_shape(cfg.num_layers), None),
+                enc_out=self._tp_cache(
+                    enc, (bl, "sp", None), seq_block, stacked=False,
+                    shape=(b, enc[0][0].shape[1], cfg.d_model)))
+        elif fam == "moe":
+            caches = {}
+            for key, ck in (("first", "first"), ("layers", "kv")):
+                if key not in parts:
+                    continue
+                n = len(parts[key])
+                if cfg.use_mla:
+                    caches[ck] = tuple(self._tp_cache(
+                        parts[key], (None, bl, "sp", None),
+                        lambda lats, devs, i=i: seq_block(
+                            [lt[i] for lt in lats], devs), bf16,
+                        (n, b, s, w)) for i, w in enumerate(
+                            (cfg.kv_lora_rank, cfg.qk_rope_head_dim)))
+                else:
+                    caches[ck] = self._tp_kv_pair(parts[key], kv5,
+                                                  kv_shape(n), bf16)
+        else:
+            caches = {}
+            for key in ("ssm", "tail"):
+                if key in parts:
+                    caches[key] = tuple(self._tp_cache(
+                        parts[key], lg, lambda sts, devs, i=i:
+                        [st[i] for st in sts]) for i, lg in
+                        enumerate((state, conv)))
+            if fam == "hybrid":
+                # No group (fewer layers than attn_every): empty pairs, as
+                # on one device.
+                groups = parts.get("groups", [])
+                caches["groups"] = tuple(
+                    self._tp_group_cache(groups, i, lg)
+                    for i, lg in enumerate(((None,) + state, (None,) + conv))
+                    if groups)
+                caches["attn_kv"] = self._tp_kv_pair(
+                    parts["attn_kv"], kv5, kv_shape(len(groups)),
+                    bf16) if groups else ()
         logits = self._tp_whole(self._tp_logits(p, xs_rows, shapes,
                                                 last=True), split)
-        return logits[:, 0], dict(kv=(k, v))
+        return logits[:, 0], caches
+
+    def _tp_group_cache(self, groups, i: int, logical):
+        """The hybrid's (n_groups, attn_every, ...) SSM cache leaf i (0 the
+        state, 1 the conv tail) from each group's per-layer states."""
+        per = [self._tp_cache(g, logical[1:], lambda sts, devs:
+                              [st[i] for st in sts]) for g in groups]
+        return D.Sharded([torch.stack(ps) for ps in zip(
+            *(t.pieces for t in per))], D.named(self.mesh, logical))
 
     def _tp_init_caches(self, batch: int, seq: int) -> dict:
-        cfg, mesh = self.cfg, self.mesh
-        shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.head_dim_)
+        """`init_caches`' zeros, each leaf `Sharded` by `cache_logical`."""
+        mesh = self.mesh
 
-        def zeros(shape, logical, dtype):
-            sh = D.named(self.mesh, logical)
-            local = sh.local_shape(shape)
-            return D.Sharded([torch.zeros(local, dtype=dtype, device=d)
+        def zeros(t, logical):
+            if not torch.is_tensor(t):
+                return t
+            sh = D.named(mesh, logical)
+            local = sh.local_shape(t.shape)
+            return D.Sharded([torch.zeros(local, dtype=t.dtype, device=d)
                               for d in mesh.flat_devices()], sh)
-        logical = self.cache_logical(batch)["kv"]
-        kv = tuple(zeros(shape, lg, torch.int8 if cfg.kv_quant
-                         else torch.bfloat16) for lg in logical["kv"])
-        if not cfg.kv_quant:
-            return dict(kv=dict(kv=kv), pos=0)
-        sc = tuple(zeros(shape[:-1], lg, torch.float32)
-                   for lg in logical["scale"])
-        return dict(kv=dict(kv=kv, scale=sc), pos=0)
+        return D.map_with(zeros, self.init_caches(batch, seq, device="meta"),
+                          self.cache_logical(batch))
+
+    def _batch_leaf(self, caches) -> tuple:
+        """A cache leaf and the index of its batch dimension."""
+        fam = self.cfg.family
+        if fam in DENSE_FAMILIES:
+            return caches["kv"]["kv"][0], 1
+        if fam == "hybrid":
+            return caches["groups"][0], 2
+        key = {"moe": "kv", "ssm": "ssm", "encdec": "self_kv"}[fam]
+        return caches[key][0], 1
 
     def _tp_decode_step(self, caches, tokens):
         cfg, mesh = self.cfg, self.mesh
         pos = int(caches["pos"])
-        kst, vst = caches["kv"]["kv"]
-        A.check_cache_room(pos, kst.shape[2])
+        smax = self._attention_cache_len(caches)
+        if smax is not None:
+            A.check_cache_room(pos, smax)
         rows, split = self._tp_rows(dict(tokens=tokens))
-        if (kst.sharding.spec[1] is not None) != split:
+        leaf, bdim = self._batch_leaf(caches)
+        if (leaf.sharding.spec[bdim] is not None) != split:
             raise ValueError(f"a batch of {tokens.shape[0]} against caches "
-                             f"placed {kst.sharding.spec}")
+                             f"placed {leaf.sharding.spec}")
         p = self.compute_params()
         g = B.fsdp_gather(p["embed"], mesh)
         dt = _compute_dtype(cfg)
         xs_rows = [[x.to(dt) for x in L.embed_tokens_tp(
             B.row_params(g, mesh.rows()[r]), rb["tokens"], cfg,
             self._tp_devices(r))] for r, rb in enumerate(rows)]
-        scales = caches["kv"].get("scale")
-        for i, lp in enumerate(B.unstack_sharded(p["layers"])):
-            def cache(j):
-                if cfg.kv_quant:
-                    return A.Int8KVCache(
-                        k=kst.pieces[j][i], v=vst.pieces[j][i],
-                        k_scale=scales[0].pieces[j][i],
-                        v_scale=scales[1].pieces[j][i], pos=pos)
-                return A.KVCache(k=kst.pieces[j][i], v=vst.pieces[j][i],
-                                 pos=pos)
-            cs = [[cache(j) for j in row] for row in mesh.rows()]
-            xs_rows = B.dense_decode_block_tp(lp, xs_rows, cs, pos, cfg,
-                                              mesh)
+
+        def per_row(make):
+            return [[make(j) for j in row] for row in mesh.rows()]
+
+        def kv_cache(k, v, i):
+            return lambda j: A.KVCache(k=k.pieces[j][i], v=v.pieces[j][i],
+                                       pos=pos)
+
+        def ssm_stack(stacked, pair, xs_rows, at=()):
+            conv, state = pair
+            for i, lp in enumerate(B.unstack_sharded(stacked)):
+                cs = per_row(lambda j: S.MambaCache(
+                    conv=conv.pieces[j][at + (i,)],
+                    state=state.pieces[j][at + (i,)]))
+                xs_rows = B.ssm_decode_block_tp(lp, xs_rows, cs, cfg, mesh)
+            return xs_rows
+
+        fam = cfg.family
+        if fam in DENSE_FAMILIES:
+            kst, vst = caches["kv"]["kv"]
+            scales = caches["kv"].get("scale")
+            for i, lp in enumerate(B.unstack_sharded(p["layers"])):
+                def cache(j):
+                    if cfg.kv_quant:
+                        return A.Int8KVCache(
+                            k=kst.pieces[j][i], v=vst.pieces[j][i],
+                            k_scale=scales[0].pieces[j][i],
+                            v_scale=scales[1].pieces[j][i], pos=pos)
+                    return kv_cache(kst, vst, i)(j)
+                xs_rows = B.dense_decode_block_tp(lp, xs_rows,
+                                                  per_row(cache), pos, cfg,
+                                                  mesh)
+        elif fam == "moe":
+            for key, ck in (("first", "first"), ("layers", "kv")):
+                if key not in p:
+                    continue
+                c1, c2 = caches[ck]
+                for i, lp in enumerate(B.unstack_sharded(p[key])):
+                    if cfg.use_mla:
+                        def make(j, i=i):
+                            return M.MLACache(c_kv=c1.pieces[j][i],
+                                              k_rope=c2.pieces[j][i],
+                                              pos=pos)
+                    else:
+                        make = kv_cache(c1, c2, i)
+                    xs_rows = B.moe_decode_block_tp(lp, xs_rows,
+                                                    per_row(make), pos, cfg,
+                                                    mesh, split)
+        elif fam == "ssm":
+            xs_rows = ssm_stack(p["layers"], caches["ssm"], xs_rows)
+        elif fam == "hybrid":
+            ka, va = caches["attn_kv"]
+            for gi, gp in enumerate(B.unstack_sharded(p["groups"])):
+                xs_rows = ssm_stack(gp, caches["groups"], xs_rows, (gi,))
+                xs_rows = B.dense_decode_block_tp(
+                    p["shared_attn"], xs_rows, per_row(kv_cache(ka, va, gi)),
+                    pos, cfg, mesh)
+            if "tail" in caches:
+                xs_rows = ssm_stack(p["tail"], caches["tail"], xs_rows)
+        else:                                               # encdec
+            eo = caches["enc_out"]
+            enc = [[x.to(dt) for x in D.all_gather(
+                [eo.pieces[j] for j in row], 1, self._tp_devices(r))]
+                for r, row in enumerate(mesh.rows())]
+            kst, vst = caches["self_kv"]
+            for i, lp in enumerate(B.unstack_sharded(p["layers"])):
+                xs_rows = B.dense_decode_block_tp(
+                    lp, xs_rows, per_row(kv_cache(kst, vst, i)), pos, cfg,
+                    mesh, enc_rows=enc)
         shapes = [xs[0].shape for xs in xs_rows]
         xs_rows = [B.boundary(xs, self._tp_devices(r))
                    for r, xs in enumerate(xs_rows)]
         logits = self._tp_whole(self._tp_logits(p, xs_rows, shapes), split)
         return logits[:, 0], dict(caches, pos=pos + 1)
+
+
+def seq_block(xs, devices) -> list:
+    """Each model position's "sp" block of a row tensor replicated at its
+    positions (`xs`, a list over them)."""
+    return [B.seq_blocks(x, len(devices))[m] for m, x in enumerate(xs)]
 
 
 def _drop(out) -> None:

@@ -17,6 +17,11 @@ on its capacity slots, so a decode step reads every expert's weights.
 Supports DeepSeek-style shared experts and Arctic's dense residual, and
 returns the Switch-style load-balancing `aux`.
 
+Over a mesh (`moe_apply_tp`) the experts are split over "model" (the
+reference's `wi`/`wo` rules), the shared experts and the dense residual
+are column- then row-parallel, and the dispatch groups stay the global
+batch's (see its docstring).
+
 Routing ties: the router's logits are computed in the activations' dtype
 (bf16 when serving), so two experts can tie exactly; `jax.lax.top_k`
 then puts the lower expert index first, which `top_k` keeps (a stable
@@ -24,11 +29,14 @@ descending sort), where `torch.topk` promises no order.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import mlp_apply, mlp_specs, silu
+from repro_torch.models.layers import (mlp_apply, mlp_apply_tp, mlp_specs,
+                                       silu)
 from repro_torch.models.pspec import PSpec
 
 
@@ -66,22 +74,27 @@ def group_size(cfg: ModelConfig, t: int) -> int:
     return g
 
 
-def moe_apply(p, x, cfg: ModelConfig):
-    """x: (B, S, D) -> ((B, S, D), aux)."""
-    b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    tokens = x.reshape(-1, d)
-    t = tokens.shape[0]
-    g = group_size(cfg, t)
-    ng = t // g
-    cap = max(1, int(g * k / e * cfg.capacity_factor))
+class Routing(NamedTuple):
+    """The reference's routing of T tokens in `ng` dispatch groups."""
+    probs: torch.Tensor       # (T, E) float32
+    onehot: torch.Tensor      # (ng, g, k, E) each rank's expert
+    slot: torch.Tensor        # (ng, g, k) capacity slot at that expert
+    keep: torch.Tensor        # (ng, g, k) slot < cap
+    dispatch: torch.Tensor    # (ng, g, E, cap) in {0, 1}
+    combine: torch.Tensor     # (ng, g, E, cap) router weights
 
-    logits = tokens @ p["router"].to(x.dtype)
+
+def route(tokens, router, cfg: ModelConfig, g: int) -> Routing:
+    """Top-k routing of `tokens` (T, D) and the grouped one-hot dispatch
+    with per-(group, expert) capacity, groups of `g` in token order."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    ng = tokens.shape[0] // g
+    cap = max(1, int(g * k / e * cfg.capacity_factor))
+    logits = tokens @ router.to(tokens.dtype)
     probs = torch.softmax(logits.float(), dim=-1)
     topw, topi = top_k(probs, k)                          # (T, k)
     topw = topw / torch.sum(topw, -1, keepdim=True)       # renormalize
 
-    # Grouped one-hot dispatch with per-(group, expert) capacity.
     gi = topi.reshape(ng, g, k)
     gw = topw.reshape(ng, g, k)
     onehot = F.one_hot(gi, e).float()                     # (ng, g, k, E)
@@ -89,21 +102,44 @@ def moe_apply(p, x, cfg: ModelConfig):
     slot = torch.einsum("ngke,ngke->ngk", pos, onehot)    # (ng, g, k)
     keep = slot < cap
     # `jax.nn.one_hot` of a float slot: slots >= cap give zero rows.
-    slot_oh = (slot[..., None] == torch.arange(cap, device=x.device)).float() \
-        * keep[..., None]
+    slot_oh = (slot[..., None] == torch.arange(cap, device=tokens.device)
+               ).float() * keep[..., None]
     # dispatch[n, g, e, c] in {0,1}; combine carries router weights.
     dispatch = torch.einsum("ngke,ngkc->ngec", onehot, slot_oh)
     combine = torch.einsum("ngke,ngkc->ngec", gw[..., None] * onehot,
                            slot_oh)
+    return Routing(probs, onehot, slot, keep, dispatch, combine)
 
-    xg = tokens.reshape(ng, g, d)
-    xe = torch.einsum("ngec,ngd->necd", dispatch.to(x.dtype), xg)
-    hidden = torch.einsum("necd,edf->necf", xe, p["wi"].to(x.dtype))
+
+def _experts(wi, wo, dispatch, combine, xg):
+    """The experts of `wi` (e, D, 2f) and `wo` (e, f, D) on their slots of
+    the groups `xg` (ng, g, D): their part of the combined output."""
+    dt = xg.dtype
+    xe = torch.einsum("ngec,ngd->necd", dispatch.to(dt), xg)
+    hidden = torch.einsum("necd,edf->necf", xe, wi.to(dt))
     u, gate = torch.chunk(hidden, 2, dim=-1)
     hidden = u * silu(gate)
-    ye = torch.einsum("necf,efd->necd", hidden, p["wo"].to(x.dtype))
-    y = torch.einsum("ngec,necd->ngd", combine.to(x.dtype), ye)
-    y = y.reshape(b, s, d)
+    ye = torch.einsum("necf,efd->necd", hidden, wo.to(dt))
+    return torch.einsum("ngec,necd->ngd", combine.to(dt), ye)
+
+
+def _load_sums(r: Routing, cfg: ModelConfig) -> tuple:
+    """The aux's two sums over the tokens: each expert's top-k count and
+    its router probability."""
+    k, e = cfg.experts_per_token, cfg.num_experts
+    return (torch.sum(r.onehot.reshape(-1, k, e).sum(1), dim=0),
+            torch.sum(r.probs, dim=0))
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """x: (B, S, D) -> ((B, S, D), aux)."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    tokens = x.reshape(-1, d)
+    g = group_size(cfg, tokens.shape[0])
+    r = route(tokens, p["router"], cfg, g)
+    y = _experts(p["wi"], p["wo"], r.dispatch, r.combine,
+                 tokens.reshape(-1, g, d)).reshape(b, s, d)
 
     if cfg.num_shared_experts:
         h = x @ p["shared_wi"].to(x.dtype)
@@ -113,7 +149,92 @@ def moe_apply(p, x, cfg: ModelConfig):
         y = y + mlp_apply(p["dense"], x, cfg)
 
     # Load-balancing auxiliary loss (Switch-style).
-    me = torch.mean(onehot.reshape(-1, k, e).sum(1), dim=0)
-    pe = torch.mean(probs, dim=0)
+    me = torch.mean(r.onehot.reshape(-1, k, e).sum(1), dim=0)
+    pe = torch.mean(r.probs, dim=0)
     aux = e * torch.sum(me * pe)
     return y, aux
+
+
+# --- over a mesh ------------------------------------------------------------
+
+def _moe_row(p, hs, cfg: ModelConfig, devices, g: int) -> tuple:
+    """The MoE of one data row's tokens `hs` (replicated at its model
+    positions; `p` the positions' FSDP-gathered pieces): each position
+    runs its block of the experts on their slots, and the shared experts
+    and the dense residual tensor-parallel. Returns (each position's
+    partial output, `_load_sums`, the routing)."""
+    nm = len(devices)
+    ne = cfg.num_experts // nm
+    made = {}
+    outs = []
+    for m, (x, dev) in enumerate(zip(hs, devices)):
+        b, s, d = x.shape
+        if dev not in made:          # positions on one device share it
+            made[dev] = route(x.reshape(-1, d), p["router"][m], cfg, g)
+        r = made[dev]
+        sl = slice(m * ne, (m + 1) * ne)
+        outs.append(_experts(p["wi"][m], p["wo"][m], r.dispatch[:, :, sl],
+                             r.combine[:, :, sl],
+                             x.reshape(-1, g, d)).reshape(b, s, d))
+    if cfg.num_shared_experts:
+        sh = mlp_apply_tp(dict(wi=p["shared_wi"], wo=p["shared_wo"]), hs,
+                          cfg, devices, act="swiglu")
+        outs = [y + z for y, z in zip(outs, sh)]
+    if cfg.dense_residual:
+        outs = [y + z for y, z in zip(outs, mlp_apply_tp(p["dense"], hs, cfg,
+                                                         devices))]
+    r = made[devices[0]]
+    return outs, _load_sums(r, cfg), r
+
+
+def moe_apply_tp(p_rows, hs_rows, cfg: ModelConfig, devs_rows,
+                 split: bool) -> tuple:
+    """The MoE over the data rows: `hs_rows[r]` row r's input replicated at
+    its model positions, `p_rows[r]` its positions' weights. Experts are
+    over "model"; each position's output is a partial sum over "model".
+
+    The dispatch groups are the reference's: `min(moe_group, B·S)` tokens
+    of the whole batch in its flattened (B, S) order, rows in order when
+    `split` (each row a block of the batch), else each row holds the whole
+    batch. Where every row holds whole groups, each routes its own; where
+    a group spans rows (a decode batch of B < moe_group tokens, say),
+    every row gathers the batch's tokens over the data rows, routes and
+    runs all of it, and keeps its own tokens' outputs, so that slots,
+    capacity drops and slot collisions are the global group's. The aux's
+    two means run over the whole batch (its sums over the rows) before
+    their product.
+
+    Returns (each row's per-position partial outputs, aux, the batch's
+    routing: slots and keeps in the batch's group order)."""
+    tok = [hs[0].shape[0] * hs[0].shape[1] for hs in hs_rows]
+    dev0 = devs_rows[0][0]
+    e = cfg.num_experts
+    if not split:
+        res = [_moe_row(p, hs, cfg, devs, group_size(cfg, t))
+               for p, hs, devs, t in zip(p_rows, hs_rows, devs_rows, tok)]
+        total, sums, rts = tok[0], res[0][1], [res[0][2]]
+    else:
+        total = sum(tok)
+        g = group_size(cfg, total)
+        if all(t % g == 0 for t in tok):
+            res = [_moe_row(p, hs, cfg, devs, g)
+                   for p, hs, devs in zip(p_rows, hs_rows, devs_rows)]
+            sums = tuple(sum(x[1][i].to(dev0) for x in res)
+                         for i in range(2))
+            rts = [x[2] for x in res]
+        else:
+            res = []
+            lo = 0
+            for p, hs, devs in zip(p_rows, hs_rows, devs_rows):
+                whole = [torch.cat([h[m].to(dev) for h in hs_rows])
+                         for m, dev in enumerate(devs)]
+                outs, sm, rt = _moe_row(p, whole, cfg, devs, g)
+                br = hs[0].shape[0]
+                res.append(([y[lo:lo + br] for y in outs], sm, rt))
+                lo += br
+            sums, rts = res[0][1], [res[0][2]]
+    me, pe = (x.to(dev0) / total for x in sums)
+    aux = e * torch.sum(me * pe)
+    routing = dict(slot=torch.cat([r.slot.to(dev0) for r in rts]),
+                   keep=torch.cat([r.keep.to(dev0) for r in rts]))
+    return [x[0] for x in res], aux, routing

@@ -12,11 +12,12 @@ as jax casts a weak-typed scalar.
 
 Over a mesh the parameter tree's leaves are `distributed.sharding.Sharded`
 and the moments are placed as their parameters (`launch.steps.
-opt_shardings`). `apply` first sums each gradient block over the
-positions that replicate it, in mesh order (a replicated parameter's
-gradient is the sum of its uses); `global_norm` then counts each
-distinct block once; each block is updated once and copied to its
-replicas, so that replicas stay bit-equal.
+opt_shardings`). A `Sharded` gradient comes with each block summed over
+the positions that replicate it (`sum_replicas`, which the train step
+applies to each microbatch's gradient, as a data-parallel all-reduce
+would: a replicated parameter's gradient is the sum of its uses);
+`global_norm` counts each distinct block once; each block is updated
+once and copied to its replicas, so that replicas stay bit-equal.
 """
 from __future__ import annotations
 
@@ -105,7 +106,8 @@ def global_norm(tree) -> torch.Tensor:
 
 def sum_replicas(g: Sharded) -> Sharded:
     """Each block's gradient summed over the positions that hold it (mesh
-    order, on the first's device), handed to each of them."""
+    order, on the first's device), handed to each of them on its device
+    (the all-reduce of a data-parallel gradient)."""
     out = list(g.pieces)
     for grp in g.sharding.replica_groups():
         dev = g.pieces[grp[0]].device
@@ -113,14 +115,12 @@ def sum_replicas(g: Sharded) -> Sharded:
         for i in grp[1:]:
             s = s + g.pieces[i].to(dev)
         for i in grp:
-            out[i] = s
+            out[i] = s.to(g.pieces[i].device)
     return Sharded(out, g.sharding)
 
 
 def apply(params, grads, state: OptState, cfg: AdamWConfig):
     """One AdamW step. Returns (new_params, new_state, metrics)."""
-    grads = unflatten(grads, [sum_replicas(g) if isinstance(g, Sharded)
-                              else g for g in flatten(grads)])
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1

@@ -118,8 +118,9 @@ def test_lm_driver_refuses_unported_family(monkeypatch, capsys):
     reference's prompt of zero encoder frames and decoder tokens of 1),
     each decoding the library path's greedy tokens; deepseek with its
     parameters held in bf16 (`--param-dtype bfloat16`, as it is served at
-    full width). What it still refuses is a mesh larger than one device
-    (exit 2, saying so)."""
+    full width). A mesh larger than one device serves too; what it still
+    refuses is a production mesh larger than the machine (ValueError
+    naming the device count)."""
     seen = capture(monkeypatch, "run_lm")
     for arch, extra in (("deepseek-v2-lite-16b", {"param_dtype": "bfloat16"}),
                         ("mamba2-780m", {}), ("zamba2-1.2b", {}),
@@ -139,13 +140,17 @@ def test_lm_driver_refuses_unported_family(monkeypatch, capsys):
             assert bool((batch["tokens"] == 1).all())
         want = greedy(Model(cfg, device="cpu", seed=0), batch, 3)
         assert torch.equal(seen["out"]["tokens"], want), arch
-    capsys.readouterr()
     monkeypatch.setattr(serve, "make_local_mesh",
                         lambda dev: Mesh([dev, dev]))
     assert serve.main(["--mode", "lm", "--device", "cpu", "--arch",
-                       "zamba2-1.2b", "--reduced"]) == 2
-    err = capsys.readouterr().err
-    assert "one-device mesh" in err and "sharding" in err
+                       "zamba2-1.2b", "--reduced", "--batch", "2",
+                       "--prefill", "32", "--decode", "2"]) == 0
+    assert seen["out"]["model"].mesh.shape == {"data": 1, "model": 2}
+    assert seen["out"]["tokens"].shape == (2, 2)
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"needs 256 devices; {n} were"):
+        serve.main(["--mode", "lm", "--device", "cpu", "--arch",
+                    "zamba2-1.2b", "--reduced", "--production-mesh"])
 
 
 def test_driver_refuses_missing_cuda(monkeypatch, capsys):
@@ -168,6 +173,7 @@ def test_local_mesh_and_model_mesh_rule():
     assert m.device == torch.device("cpu")
     hybrid = reduced(get_arch("zamba2-1.2b"))
     for devices in ([["cpu"], ["cpu"]], ["cpu", "cpu"]):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            Model(hybrid, mesh=Mesh(devices))
+        assert Model(hybrid, mesh=Mesh(devices)).device == torch.device("cpu")
         assert Model(cfg, mesh=Mesh(devices)).device == torch.device("cpu")
+    with pytest.raises(ValueError, match="do not divide its 8 SSM heads"):
+        Model(hybrid, mesh=Mesh(["cpu"] * 3))

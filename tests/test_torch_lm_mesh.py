@@ -628,17 +628,90 @@ def test_batch_rule_one_and_indivisible():
         sh.init_caches(3, 8)
 
 
-def test_non_dense_family_refused_on_a_mesh():
-    """Every non-dense arch on a (2, 1) mesh raises NotImplementedError
-    naming the next slice; on (1, 1) it runs as on one device."""
+def family_batch(cfg, b: int, gen) -> dict:
+    """A train batch of `cfg`'s inputs: tokens, or embeddings for an
+    embeddings-input config, the enc-dec's encoder frames with decoder
+    tokens; 32 positions (the reduced SSD chunk)."""
+    s = 32
+    batch = dict(tokens=torch.randint(0, cfg.vocab_size, (b, s),
+                                      generator=gen),
+                 labels=torch.randint(0, cfg.vocab_size, (b, s),
+                                      generator=gen))
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = torch.randn(b, s, cfg.d_model, generator=gen)
+    elif cfg.embeds_input:
+        batch["embeds"] = torch.randn(b, s, cfg.d_model, generator=gen)
+        del batch["tokens"]
+    return batch
+
+
+def test_every_family_builds_on_a_mesh_and_compress_refused():
+    """Every arch (reduced) builds on a (2, 1) mesh with the one-device
+    model's weights; on (1, 1) every family runs as on one device (the
+    same logits, bit for bit); on (2, 2, 2), float32, the loss, prefill
+    logits, a decode step from float32 caches and one train step (its
+    optimizer, at most 2 microbatches, lr 3e-6 at the first warmup step)
+    against one device: loss rtol 1e-5 [7.6e-8], logits rtol 1e-4, each
+    update within 1e-6 [1.5e-8] where the one-device gradient exceeds
+    1e-2 of its leaf's largest (a first step
+    moves a parameter by about lr whatever its gradient's size, so a
+    gradient lost in rounding may move it the other way); `--compress` on a
+    sharded step still raises, naming the slice that will lift it."""
+    from repro_torch.optim.compression import CompressionConfig
+    gen = torch.Generator().manual_seed(4)
+    pod = cpu_mesh((2, 2, 2), ("pod", "data", "model"))
     for name in ALL_ARCHS:
         cfg = T.reduced(T.get_arch(name))
-        if cfg.family in ("dense", "vlm", "audio"):
-            continue
-        with pytest.raises(NotImplementedError, match="next LM mesh slice"):
-            Model(cfg, device="cpu", mesh=cpu_mesh((2, 1)))
+        one = Model(cfg, device="cpu", seed=0)
+        sh = Model(cfg, device="cpu", seed=0, mesh=cpu_mesh((2, 1)))
+        for k, v in one.state_dict().items():
+            assert torch.equal(sh.state_dict()[k], v), (name, k)
         m = Model(cfg, device="cpu", seed=0, mesh=cpu_mesh((1, 1)))
         assert m.mesh.size == 1 and m.params()["ln_f"].device == CPU
+        batch = family_batch(cfg, 2, gen)
+        assert torch.equal(m.forward(batch)[0], one.forward(batch)[0]), name
+
+        cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                  moment_dtype="float32",
+                                  microbatches=min(cfg.microbatches, 2))
+        one = Model(cfg, device="cpu", seed=2)
+        sh = Model(cfg, device="cpu", seed=2, mesh=pod)
+        batch = family_batch(cfg, 8, gen)
+        pre = {k: v for k, v in batch.items() if k != "labels"}
+        l1, l2 = float(one.loss(batch)), float(sh.loss(batch))
+        assert abs(l1 - l2) <= 1e-5 * abs(l1), name
+        (p1, c1), (p2, c2) = one.prefill(pre), sh.prefill(pre)
+        caches = [float32_caches(x.init_caches(8, 8)) for x in (one, sh)]
+        if cfg.family == "encdec":
+            caches = [dict(c, enc_out=p["enc_out"])
+                      for c, p in zip(caches, (c1, c2))]
+        tok = batch.get("tokens", torch.ones(8, 32, dtype=torch.long))[:, :1]
+        d1, d2 = (x.decode_step(c, tok)[0] for x, c in zip((one, sh),
+                                                            caches))
+        for g, w in ((p2, p1), (d2, d1)):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                       atol=1e-4 * float(w.abs().max()),
+                                       err_msg=name)
+        one.requires_grad_(True)
+        grads = dict(zip((k for k, _ in pspec.leaves(one.params())),
+                         ST.grads_of(one, batch, flatten(one.params()))[1]))
+        one.requires_grad_(False)
+        before = one.state_dict()
+        before = {k: v.clone() for k, v in before.items()}
+        opt_cfg = ST.make_opt_cfg(cfg)
+        opt = adafactor if cfg.optimizer == "adafactor" else adamw
+        for x in (one, sh):
+            ST.make_train_step(x, opt_cfg, x.mesh)(
+                opt.init(x.params(), opt_cfg), batch)
+        assert_replicas_equal(sh.params())
+        got = sh.state_dict()
+        for k, v in one.state_dict().items():
+            g = grads[k].abs()
+            sel = g > 1e-2 * g.max()
+            err = ((got[k] - before[k]) - (v - before[k])).abs()[sel]
+            assert not err.numel() or float(err.max()) <= 1e-6, (name, k)
+    with pytest.raises(ValueError, match="ports --compress over a mesh"):
+        TR.make_step(sh, ST.make_opt_cfg(cfg), CompressionConfig(kind="int8"))
 
 
 def test_sharded_checkpoint_resume_and_elastic_reshard(tmp_path):
