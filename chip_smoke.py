@@ -5,7 +5,7 @@
                           --sessions-only | --lod-only | --shards-only |
                           --train-only | --serve-only | --families-only |
                           --lm-train-only | --lm-mesh-only |
-                          --lm-mesh-families-only]
+                          --lm-mesh-families-only | --dryrun-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -224,11 +224,12 @@ Phases, in order:
      at 3.35 TB/s); each model freed before the next.
      e. per arch, 64 teacher-forced decode steps at batch 1 against
         `forward` (the SSM and hybrid forward at ssm_chunk 64, the MoE at
-        moe_group 1 after its seed-0 run: its reference dispatch mixes the
-        tokens of a group): logits at full depth measured on seed-0
-        weights and with the attention projections at their contraction
-        fan-in (`fan_in_attention`: self-, cross-, MLA and the hybrid's
-        shared block), the enc-dec's gated there (relative RMS <= 0.05,
+        moe_group 1: its reference dispatch mixes the tokens of a group):
+        logits at full depth measured with the attention projections at
+        their contraction fan-in (`fan_in_attention`: self-, cross-, MLA
+        and the hybrid's shared block; the SSM, which has none, on its
+        seed-0 weights; the seed-0 runs of the others, measured until
+        phase 15 came, are in PERF.md), the enc-dec's gated there (relative RMS <= 0.05,
         agreement >= 0.9); the MoE's share of (token, layer) routed
         differently. The MoE, SSM and hybrid part past those gates with
         depth, in the reference as in the port (`python
@@ -312,10 +313,11 @@ Phases, in order:
      tokens equal, the MoE's routing flips counted; the gates (this and
      b-d's training step) run at the depth where one device holds
      against itself (FAM_MESH_GATE_DEPTH, from `python
-     tools/torch_lm_spreads.py --families`), and the cut archs run again
-     at full depth, reported, not gated; then the driver's dtypes at full
-     depth, one device built, run and freed before the mesh model: ms a
-     token, a warm decode step's busy share, peak memory.
+     tools/torch_lm_spreads.py --families`; the cut archs' ungated runs
+     at full depth, reported until phase 15 came, are in PERF.md); then
+     the driver's dtypes at full depth, one device built, run and freed
+     before the mesh model: ms a token, a warm decode step's busy share,
+     peak memory.
      a. deepseek-v2-lite-16b (the gate at its dense first layer and one
         MoE layer; the cost with bf16 parameters, 31.4 GB), prompt 64
      b. mamba2-780m, prompt 256 (the SSD chunk must divide it), and one
@@ -336,11 +338,54 @@ Phases, in order:
         first-step v = g² + eps, a factored leaf's held everywhere)
      f. each reduced family (deepseek, arctic, mamba2, zamba2,
         seamless) as 13c, with one step after the reshard
+  15. runs after 14: the dry-runs and roofline (`launch.dryrun`,
+     `launch.render_dryrun`, `launch.roofline`), --compress over a mesh
+     and the profiler hook:
+     a. qwen1.5-0.5b at full width and depth on the (1, 1) mesh of the
+        card, the bf16 train step at 8 x 1024 and a decode step at batch
+        4 over 576 cache slots: the meta cell (cut depths 2 and 3,
+        extrapolated) against the same counters around the real step:
+        flops and bytes equal, argument bytes within 512 B a tensor of
+        the placed arguments' allocation, peak within 15% of the card's;
+        the roofline terms and bottleneck beside the warm step's wall and
+        device-busy ms
+     b. the same qwen in float32 at 4 x 1024 on (data=2, model=2) virtual
+        shards: the 4 positions' argument bytes (less their batch blocks,
+        plus the one whole batch) against the allocation, the real step's
+        collectives per device equal to the meta cell's, per kind
+     c. qwen1.5-0.5b x decode_32k on the 256-position production mesh
+        of meta devices, cut to 1 and 2 layers (DRY_META_DEPTHS; the
+        512-position cell was cut for time):
+        GiB, flops, bytes and collective bytes per device, the three
+        terms and the bottleneck
+     d. the render dry-run at its defaults (256 frames at 256², 65,536
+        Gaussians, k_max 2048, MIXED) on the single-pod mesh of the card,
+        the positions RENDER_DRY_SAMPLE run (a position's frame costs
+        ~10^5 small ops): each frame bit-equal to its plain render;
+        per-device peak, flops, bytes; no kernel launched
+     e. --compress topk and int8 through the driver's step, float32 qwen
+        with `fan_in_attention` weights, 3 steps at 2 x 512 over (2, 2)
+        against one device, each step from the one-device state
+        (parameters, moments, residuals): the mesh's compressed gradient
+        and residuals bit-equal to the one-device scheme applied to the
+        mesh's own gathered gradient; every entry whose compressed value
+        flipped between the two runs has an edge (the top-k threshold, an
+        int8 rounding edge, under either run's constant) between the two
+        runs' inputs, and every entry whose inputs lie strictly on
+        opposite sides of one flipped; 13a's gates over the entries that
+        did not flip; the flips counted, with those within 1e-5 of their
+        edge and, for the rest, their distance and the two runs' relative
+        input difference there (float32 sums in two orders: up to 3e-3 at
+        single entries)
+     f. `obs.torch_profiler_trace` around one 1920x1088 frame through K1
+        and K2: the trace's kernel events name both kernels, as many as
+        the wrappers launched
   5. one {"kernels": [...]} line (K1's and K2's rows also carry phase 8's
      shard_launches, shard_ms and shard_bound_ms, and phase 9d's
      train_launches; K1's also phase 10a's driver_launches; every row
      phase 13's lm_mesh_launches and phase 14's
-     lm_mesh_families_launches, 0), the card
+     lm_mesh_families_launches, 0, phase 15a-e's dryrun_launches, 0, and
+     15f's profiler_launches), the card
      line, and as the last line {"ok": true, "device": {...}}
 
 Exits non-zero without printing a result when CUDA is unavailable or any
@@ -351,7 +396,8 @@ phases 1 and 7; `--shards-only` runs phases 1 and 8 (rendering 8d's
 plain frames itself); `--train-only` runs phases 1 and 9; `--serve-only`
 runs phases 1 and 10; `--families-only` phases 1 and 11; `--lm-train-only`
 phases 1 and 12; `--lm-mesh-only` phases 1 and 13;
-`--lm-mesh-families-only` phases 1 and 14; `--offpath-only` runs
+`--lm-mesh-families-only` phases 1 and 14; `--dryrun-only` phases 1 and
+15; `--offpath-only` runs
 phase 1, the 1024² setup,
 phase 6a and K3 on the 1024² frame's lists, and prints their times on
 the line before the card line and the contract's last line. A copy of this script placed
@@ -443,7 +489,11 @@ from repro_torch.configs import get_arch, reduced  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
-from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.configs.base import SHAPES, ShapeConfig  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
+from repro_torch.launch import render_dryrun, roofline  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.optim import compression as compression_mod  # noqa: E402
 from repro_torch.data import tokens as lm_data  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import blocks as blocks_mod  # noqa: E402
@@ -3384,15 +3434,15 @@ def family_self(model, tag: str) -> dict:
     """11e: 64 teacher-forced decode steps at batch 1 against `forward`.
     The SSM and hybrid forward run at ssm_chunk 64, as test_archs.py
     replaces the chunk (the SSD asserts a chunk multiple); the MoE runs at
-    moe_group 1 after its seed-0 run: its reference dispatch counts
+    moe_group 1: its reference dispatch counts
     capacity slots per top-k rank (a cumsum over the group for each rank),
     so two tokens routed to one expert at different ranks share a slot and
     the expert runs on their sum, and a decode step (a group of one)
     equals a forward only where the forward groups each token alone.
 
-    Logits at full depth, measured on the seed-0 weights, then on the same
-    weights with every attention projection at its contraction
-    dimension's fan-in (`fan_in_attention`; the SSM has none). The
+    Logits at full depth, measured with every attention projection at its
+    contraction dimension's fan-in (`fan_in_attention`; the SSM, which
+    has none, on its seed-0 weights). The
     reference's gates (relative RMS <= 0.05, agreement >= 0.9) hold the
     enc-dec there. The others part past them with depth, in the reference
     as in the port (`tests/test_torch_lm_families.py --depth-sweep`: the
@@ -3445,9 +3495,11 @@ def family_self(model, tag: str) -> dict:
         return dict(res, gated=gate, routing_flips=flips, forward_ms=fwd_ms,
                     decode_ms=dec_ms)
 
-    out = dict(seed0=logits(model, "seed-0 weights", False))
+    out = {}
     label = "seed-0 weights"
-    if cfg.family != "ssm":
+    if cfg.family == "ssm":
+        out["seed0"] = logits(model, label, False)
+    else:
         out["rescaled"] = fan_in_attention(model)
         label = (f"fan-in attention ({out['rescaled']} projections)"
                  f"{', moe_group 1' if moe else ''}")
@@ -4009,7 +4061,7 @@ def mesh_and_one(cfg, mesh, dev, label, seed=0, fan_in=False) -> tuple:
 
 
 def mesh_steps_against_one(cfg, mesh, run, dev, label, seed=0,
-                           fan_in=False, gate=True) -> dict:
+                           fan_in=False) -> dict:
     """`run["steps"]` driver steps (AdamW, whole batch) of `cfg` on `mesh`
     and on one device from the same weights (`mesh_and_one`) and batches:
     per step the loss and grad norm (relative |Δ|), the update gate
@@ -4018,8 +4070,7 @@ def mesh_steps_against_one(cfg, mesh, run, dev, label, seed=0,
     first starts the mesh from the one-device run's parameters and
     moments (placed by `opt_shardings`), so that every step's update is
     held as one step from one state (12c's criterion), not two
-    trajectories that part by their earlier roundings. Without `gate`
-    the loss, grad norm and updates are measured, not held."""
+    trajectories that part by their earlier roundings."""
     args = lm_mesh_args(run, cfg)
     opt_cfg = train_driver.opt_config(args, cfg)
     comp = train_driver.CompressionConfig()
@@ -4053,10 +4104,9 @@ def mesh_steps_against_one(cfg, mesh, run, dev, label, seed=0,
         rows.append(dict(loss=mets[1]["loss"], loss_one=mets[0]["loss"],
                          rel=rel, update_err_lr=err, replicas=reps))
         check(reps, f"{label} step {i}: replicas differ")
-        if gate:
-            check(rel["loss"] <= 1e-5 and rel["grad_norm"] <= 1e-5,
-                  f"{label} step {i}: loss/grad norm relative |Δ| {rel}")
-            check(err <= 1e-3, f"{label} step {i}: update |Δ| {err:.2e} lr")
+        check(rel["loss"] <= 1e-5 and rel["grad_norm"] <= 1e-5,
+              f"{label} step {i}: loss/grad norm relative |Δ| {rel}")
+        check(err <= 1e-3, f"{label} step {i}: update |Δ| {err:.2e} lr")
         del before, m_prev, grad
     return dict(rows=rows, mesh_ms=walls[1], one_ms=walls[0],
                 models=(one, sh), states=states)
@@ -4477,13 +4527,12 @@ def fam_cfg_at(name: str, depth, **changes):
     return cfg
 
 
-def fam_serve_gate(name: str, mesh, dev, tag: str, depth,
-                   gate: bool = True) -> dict:
+def fam_serve_gate(name: str, mesh, dev, tag: str, depth) -> dict:
     """Float32 serving of `name` at full width cut to `depth` (the
     attention projections at fan-in): prefill and FAM_MESH_SERVE's greedy
-    steps from float32 caches on `mesh` against one device; with `gate`,
-    logits within rtol 1e-4 / atol 1e-4 x max|logit| and tokens equal,
-    else reported; the MoE's routing flips counted."""
+    steps from float32 caches on `mesh` against one device: logits within
+    rtol 1e-4 / atol 1e-4 x max|logit| and tokens equal; the MoE's
+    routing flips counted."""
     cfg = fam_cfg_at(name, depth, param_dtype="float32")
     one, sh = mesh_and_one(cfg, mesh, dev, tag, fan_in=True)
     gen = torch.Generator(device="cpu").manual_seed(FAM_MESH_SERVE["seed"])
@@ -4504,12 +4553,12 @@ def fam_serve_gate(name: str, mesh, dev, tag: str, depth,
         got = mesh_routing(g_calls, w_calls, len(mesh.rows()))
         flips = float(torch.cat([(x != y).any(-1).float() for x, y in
                                  zip(got, w_calls)]).mean())
-    out = dict(depth=cfg.num_layers, gated=gate,
+    out = dict(depth=cfg.num_layers,
                errors={k: e for k, (e, _) in errs.items()},
                tokens_equal=same, routing_flips=flips,
                ms_per_token=float(np.median(g[4][1:])),
                one_ms_per_token=float(np.median(w[4][1:])))
-    log(f"[{tag}] {name} float32 {'gate' if gate else '(reported)'} at "
+    log(f"[{tag}] {name} float32 gate at "
         f"{cfg.num_layers} layers, full width, `fan_in_attention`, batch "
         f"{b}, prompt {next(iter(batch.values())).shape[1]}, {n} greedy "
         f"steps from float32 caches over (2, 2) virtual shards vs one "
@@ -4519,9 +4568,8 @@ def fam_serve_gate(name: str, mesh, dev, tag: str, depth,
                      " of (token, MoE layer)")
         + f"; {out['ms_per_token']:.1f} vs {out['one_ms_per_token']:.1f} ms"
         f" a token ({card_line()})")
-    if gate:
-        check(all(ok for _, ok in errs.values()) and same,
-              f"{tag}: logits {errs}, tokens equal {same}")
+    check(all(ok for _, ok in errs.values()) and same,
+          f"{tag}: logits {errs}, tokens equal {same}")
     del one, sh
     torch.cuda.empty_cache()
     return out
@@ -4578,27 +4626,26 @@ def fam_serve_cost(name: str, mesh, dev, tag: str) -> dict:
     return out
 
 
-def fam_train_gate(name: str, mesh, dev, tag: str, depth,
-                   gate: bool = True) -> dict:
+def fam_train_gate(name: str, mesh, dev, tag: str, depth) -> dict:
     """One float32 driver step (AdamW, whole batch) of `name` at full
     width cut to `depth` (FAM_MESH_TRAIN's batch) on `mesh` against one
-    device from the same state: 13a's gates with `gate`, else reported;
-    replicas bit-equal and every gradient leaf finite on the mesh either
-    way (F9: the first moments are 0.1 g)."""
+    device from the same state: 13a's gates, replicas bit-equal and
+    every gradient leaf finite on the mesh (F9: the first moments are
+    0.1 g)."""
     run = FAM_MESH_TRAIN[name]
     cfg = fam_cfg_at(name, depth)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     res = mesh_steps_against_one(cfg, mesh, run, dev, tag,
-                                 fan_in=cfg.family != "ssm", gate=gate)
+                                 fan_in=cfg.family != "ssm")
     finite = all(bool(torch.isfinite(p).all())
                  for t in ckpt.flatten(res["states"][1].m)
                  for p in (t.pieces if isinstance(t, Sharded) else [t]))
     row = res["rows"][0]
     out = dict(row, finite=finite, mesh_ms=res["mesh_ms"],
-               one_ms=res["one_ms"], depth=cfg.num_layers, gated=gate,
+               one_ms=res["one_ms"], depth=cfg.num_layers,
                peak_bytes=torch.cuda.max_memory_allocated())
-    log(f"[{tag}] {name} float32 {'gate' if gate else '(reported)'} at "
+    log(f"[{tag}] {name} float32 gate at "
         f"{cfg.num_layers} layers, full width, batch {run['batch']} x "
         f"{run['seq']}, one driver step over (2, 2) vs one device: loss "
         f"{row['loss']:.6f} / {row['loss_one']:.6f} (rel "
@@ -4689,24 +4736,16 @@ def phase_fam_resume(dev=torch.device("cuda")) -> dict:
 
 def phase_fam_arch(tag: str, name: str, dev) -> dict:
     """One of 14a-14d: the float32 serving and training gates at the gate
-    depth, the same at full depth reported where the gate is cut
-    (deepseek's two float32 copies do not fit), and the driver dtypes'
-    cost."""
+    depth and the driver dtypes' cost."""
     mesh = lm_mesh(LM_MESH_SHAPE, dev)
     label = f"lm-mesh-families {tag}"
     depth = FAM_MESH_GATE_DEPTH[name]
     out = dict(serve_gate=fam_serve_gate(name, mesh, dev, label, depth))
-    cut = depth is not None and name != "deepseek-v2-lite-16b"
-    if cut:
-        out["serve_full"] = fam_serve_gate(name, mesh, dev, label, None,
-                                           gate=False)
     if name in FAM_MESH_TRAIN:
-        full = FAM_MESH_TRAIN[name].get("depth")
-        out["train_gate"] = fam_train_gate(name, mesh, dev, label,
-                                           depth if cut else full)
-        if cut:
-            out["train_full"] = fam_train_gate(name, mesh, dev, label, full,
-                                               gate=False)
+        cut = depth is not None and name != "deepseek-v2-lite-16b"
+        out["train_gate"] = fam_train_gate(
+            name, mesh, dev, label,
+            depth if cut else FAM_MESH_TRAIN[name].get("depth"))
     out["cost"] = fam_serve_cost(name, mesh, dev, label)
     return out
 
@@ -4731,6 +4770,506 @@ def phase_lm_mesh_families() -> dict:
           f"lm-mesh-families: the families' mesh path launched kernels "
           f"{launches}")
     out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the dry-runs, the roofline, --compress over a mesh, the profiler
+# ---------------------------------------------------------------------------
+
+DRY_ARCH = "qwen1.5-0.5b"
+DRY_TRAIN = ShapeConfig("custom", "train", 1024, 8)       # 12a's shape
+DRY_DECODE = ShapeConfig("custom", "decode", 576, 4)      # 10b: 512 + 64
+DRY_F32_TRAIN = ShapeConfig("custom", "train", 1024, 4)   # 13a's float32
+# 15c: the single-pod cell. The multi-pod one (26.5-62.1 s of meta runs,
+# PERF.md) was the first cut made to keep the whole smoke inside its
+# time limit on a slow host; `python -m repro_torch.launch.dryrun
+# --multi-pod` runs it.
+DRY_META_CELLS = ((False, "decode_32k"),)
+# 15c's cut depths: for qwen1.5-0.5b x decode_32k the fit from 1 and 2
+# layers equals the one from 2 and 3 in every count (a CPU run of
+# `launch.dryrun.run_cell` on the 256-position mesh), in 18 s against 29.
+DRY_META_DEPTHS = (1, 2)
+DRY_PEAK_TOL = 0.15                  # 15a: peak_bytes vs the card's peak
+ALLOC_SLACK = 512                    # bytes a tensor: the allocator's round
+RENDER_DRY_SAMPLE = (0, 85, 170, 255)    # 15d: positions run of 256
+COMPRESS_RUN = dict(batch=2, seq=512, steps=3)                  # 15e
+COMPRESS_TIE = 1e-5                  # 15e: a flip "at" its edge, counted
+K1_SYMBOL, K2_SYMBOL = "prtu_entry_kernel", "blend_fused_kernel"
+
+
+def dry_launches() -> dict:
+    return dict(launches_now(), prtu_cat_mask=prtu.dense_launches,
+                blend_tiles=render.full_launches)
+
+
+def real_step(cfg, shape, mesh, dev) -> dict:
+    """The bound step of `shape` (`launch.steps.jit_*`, as the dry-run
+    runs it) on a model placed on `mesh` over the card, once under the
+    dry-run's counters: its counts, the allocation growth of the placed
+    arguments (parameters, optimizer state or caches, batch) and the
+    card's peak over the step, both from before the model."""
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg, device=dev, seed=0, mesh=mesh)
+    step, example, args = dryrun_mod.step_and_args(model, shape, mesh)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - base
+    tensors = len(dryrun_mod.tensors_of(model.params())) \
+        + len(dryrun_mod.tensors_of(args))
+    torch.cuda.reset_peak_memory_stats()
+    c = dryrun_mod.count_step(model, step, args)
+    torch.cuda.synchronize()
+    c.update(placed=placed, tensors=tensors,
+             card_peak=torch.cuda.max_memory_allocated() - base,
+             model=model, step=step, args=args, example=example)
+    return c
+
+
+def dry_against_card(cfg, shape, dev, label: str) -> dict:
+    """15a for one shape on the (1, 1) mesh: the meta cell (depth
+    extrapolated) against the real step's counters (equal), its argument
+    bytes against the placed arguments' allocation (512 B a tensor), its
+    peak against the card's (15%); the roofline terms against the warm
+    step's wall and device-busy ms."""
+    n_dev = 1
+    t0 = time.perf_counter()
+    cell = dryrun_mod.run_cell(cfg, shape, Mesh([torch.device("meta")]),
+                               verbose=False)
+    meta_s = time.perf_counter() - t0
+    real = real_step(cfg, shape, Mesh([dev]), dev)
+    check(cell["flops"] == real["flops"] > 0,
+          f"{label}: dry-run flops {cell['flops']} vs the card's "
+          f"{real['flops']}")
+    check(cell["bytes_accessed"] == real["bytes_accessed"],
+          f"{label}: dry-run bytes {cell['bytes_accessed']} vs the card's "
+          f"{real['bytes_accessed']}")
+    arg_err = abs(cell["mem"]["argument_bytes"] - real["placed"])
+    check(arg_err <= ALLOC_SLACK * real["tensors"],
+          f"{label}: argument bytes {cell['mem']['argument_bytes']} vs "
+          f"{real['placed']} allocated for {real['tensors']} tensors")
+    peak_rel = cell["mem"]["peak_bytes"] / real["card_peak"] - 1
+    check(abs(peak_rel) <= DRY_PEAK_TOL,
+          f"{label}: peak {cell['mem']['peak_bytes']} vs the card's "
+          f"{real['card_peak']} ({100 * peak_rel:+.1f}%)")
+    step, args = real["step"], real["args"]
+    sync_wall_ms(lambda: step(*args))
+    wall = sync_wall_ms(lambda: step(*args))[1]
+    busy, top = device_profile(lambda: step(*args))
+    rl = roofline.analyze(cell, cfg, shape)
+    t_bound_ms = 1e3 * max(rl["t_compute"], rl["t_memory"],
+                           rl["t_collective"])
+    out = dict(cell=cell, meta_s=meta_s, real_flops=real["flops"],
+               real_bytes=real["bytes_accessed"], placed=real["placed"],
+               tensors=real["tensors"], card_peak=real["card_peak"],
+               peak_rel=peak_rel, roofline=rl, wall_ms=wall, busy_ms=busy,
+               t_bound_ms=t_bound_ms, top_kernels=top[:5])
+    log(f"[dryrun {label}] {cfg.name} {shape.kind} {shape.global_batch} x "
+        f"{shape.seq_len} on (1, 1): meta run {meta_s:.1f} s "
+        f"({len(cell['depths']['runs'])} runs {cell['depths']['runs']} "
+        f"to {cell['depths']['full']}); flops {cell['flops']:.6e} = card "
+        f"{real['flops']:.6e}, bytes {cell['bytes_accessed']:.6e} = card "
+        f"{real['bytes_accessed']:.6e}; argument {cell['mem']['argument_bytes']}"
+        f" B vs {real['placed']} B allocated ({real['tensors']} tensors); "
+        f"temp {cell['mem']['temp_bytes']} B, peak "
+        f"{cell['mem']['peak_bytes'] / 2**30:.3f} GiB vs the card's "
+        f"{real['card_peak'] / 2**30:.3f} GiB ({100 * peak_rel:+.1f}%); "
+        f"roofline compute {1e3 * rl['t_compute']:.3f} ms, memory "
+        f"{1e3 * rl['t_memory']:.3f} ms, collective "
+        f"{1e3 * rl['t_collective']:.3f} ms -> {rl['bottleneck']}; warm "
+        f"step {wall:.2f} ms wall, {busy:.2f} ms device-busy vs t_bound "
+        f"{t_bound_ms:.3f} ms ({card_line()})")
+    del real
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dry_card(dev=torch.device("cuda")) -> dict:
+    """15a: qwen1.5-0.5b at full width and depth on one card."""
+    cfg = get_arch(DRY_ARCH)
+    return dict(train=dry_against_card(cfg, DRY_TRAIN, dev, "15a train"),
+                decode=dry_against_card(cfg, DRY_DECODE, dev, "15a decode"))
+
+
+def phase_dry_mesh(dev=torch.device("cuda")) -> dict:
+    """15b: float32 qwen on (data=2, model=2) virtual shards of the card:
+    the placed parameters and optimizer state against the summed
+    argument bytes of the 4 positions (less each one's batch block), and
+    the real step's collectives against the meta cell's."""
+    cfg = dataclasses.replace(get_arch(DRY_ARCH), dtype="float32")
+    shape = DRY_F32_TRAIN
+    n = math.prod(LM_MESH_SHAPE)
+    t0 = time.perf_counter()
+    cell = dryrun_mod.run_cell(
+        cfg, shape, lm_mesh(LM_MESH_SHAPE, torch.device("meta")),
+        verbose=False)
+    meta_s = time.perf_counter() - t0
+    mesh = lm_mesh(LM_MESH_SHAPE, dev)
+    real = real_step(cfg, shape, mesh, dev)
+    batch_b = dryrun_mod.local_bytes(real["example"][2])
+    whole_batch = sum(dryrun_mod._nbytes(t) for t in
+                      dryrun_mod.tensors_of(real["args"][1]))
+    want = n * (cell["mem"]["argument_bytes"] - batch_b) + whole_batch
+    err = abs(want - real["placed"])
+    check(err <= ALLOC_SLACK * real["tensors"],
+          f"15b: summed argument bytes {want} vs {real['placed']} "
+          f"allocated for {real['tensors']} tensors")
+    coll = roofline.collective_bytes(real["records"], n)
+    check(coll == cell["collectives"],
+          f"15b: the card's collectives {coll} vs the meta cell's "
+          f"{cell['collectives']}")
+    kinds = {}
+    for kind, nbytes, pos in real["records"]:
+        k = kinds.setdefault(kind, [0, 0])
+        k[0] += 1
+        k[1] += nbytes * pos
+    log(f"[dryrun 15b] {cfg.name} float32 {shape.global_batch} x "
+        f"{shape.seq_len} on (data=2, model=2) virtual shards: meta run "
+        f"{meta_s:.1f} s; placed {real['placed']} B = 4 positions' "
+        f"argument bytes less their batch blocks, plus the whole batch "
+        f"{want} B (|Δ| {err} B, {real['tensors']} tensors); collectives "
+        f"per device equal to the meta cell's: {coll['per_kind']}, "
+        f"{coll['num_ops']} ops; the controller's records per kind "
+        f"(calls, bytes over positions) {kinds}; flops {real['flops']:.6e}"
+        f" (meta {cell['flops'] * n:.6e}), card peak "
+        f"{real['card_peak'] / 2**30:.3f} GiB ({card_line()})")
+    del real
+    torch.cuda.empty_cache()
+    return dict(cell=cell, meta_s=meta_s, collectives=coll, kinds=kinds,
+                placed_err=err)
+
+
+def dry_row(cell: dict, cfg, shape) -> dict:
+    rl = roofline.analyze(cell, cfg, shape)
+    return dict(gib=cell["mem"]["peak_bytes"] / 2**30, flops=cell["flops"],
+                bytes=cell["bytes_accessed"],
+                coll=cell["collectives"]["per_kind"],
+                terms_ms={k: 1e3 * rl[f"t_{k}"]
+                          for k in ("compute", "memory", "collective")},
+                bottleneck=rl["bottleneck"], meta_s=cell["compile_s"])
+
+
+def phase_dry_cells() -> dict:
+    """15c: production-mesh meta cells (256 and 512 positions)."""
+    out = {}
+    for multi_pod, sname in DRY_META_CELLS:
+        cfg, shape = get_arch(DRY_ARCH), SHAPES[sname]
+        mesh = dryrun_mod.meta_mesh(multi_pod)
+        cell = dryrun_mod.run_cell(cfg, shape, mesh, verbose=False,
+                                   depths=DRY_META_DEPTHS)
+        row = dry_row(cell, cfg, shape)
+        key = f"{'multi' if multi_pod else 'single'}_pod {cfg.name} x {sname}"
+        out[key] = dict(row, mem=cell["mem"], devices=cell["devices"],
+                        depths=cell["depths"])
+        log(f"[dryrun 15c] {key} ({cell['devices']} positions): meta runs "
+            f"{cell['compile_s']} s; {row['gib']:.3f} GiB/dev (argument "
+            f"{cell['mem']['argument_bytes']} B, temp "
+            f"{cell['mem']['temp_bytes']:.0f} B), flops/dev "
+            f"{row['flops']:.4e}, bytes/dev {row['bytes']:.4e}, collective "
+            f"B/dev {row['coll']}; terms ms {row['terms_ms']} -> "
+            f"{row['bottleneck']}")
+    return out
+
+
+def phase_dry_render(dev=torch.device("cuda")) -> dict:
+    """15d: the render dry-run at its defaults on the single-pod mesh of
+    the card, the positions of RENDER_DRY_SAMPLE run: each one's frame
+    bit-equal to a plain render of its camera; no kernel launched."""
+    reset_launches()
+    mesh = make_production_mesh(devices=[dev] * 256)
+    plan = render_dryrun.make_plan(256, 2048)
+    scene, cams = render_dryrun.make_inputs(256, 256, 65536, dev)
+    res = render_dryrun.run(plan, scene, cams, mesh, keep=RENDER_DRY_SAMPLE,
+                            positions=RENDER_DRY_SAMPLE)
+    for i in RENDER_DRY_SAMPLE:
+        out, counters = plan.render_with_stats(scene, cams[i])
+        (img,), (ppp,) = res["kept"][i]
+        check(torch.equal(img, out.image) and torch.equal(
+            ppp, counters["processed_per_pixel"]),
+            f"15d: position {i}'s frame differs from its plain render")
+    launches = dry_launches()
+    check(not any(launches.values()), f"15d launched kernels {launches}")
+    m = res["max"]
+    log(f"[dryrun 15d] flicker-render x 256 frames @ 256^2, N=65536, "
+        f"k_max 2048, mesh {dict(mesh.shape)} of the card, positions "
+        f"{RENDER_DRY_SAMPLE} run ({res['wall_s']:.1f} s, frames bit-equal "
+        f"to plain renders): peak {m['peak_bytes'] / 2**30:.4f} GiB/dev "
+        f"(temp {m['temp_bytes']} B on the card's allocator, argument "
+        f"{m['argument_bytes']} B), flops/dev {m['flops']:.3e}, bytes/dev "
+        f"{m['bytes_accessed']:.4e}, coll {m['collective_bytes']}; "
+        f"launches {launches} ({card_line()})")
+    return dict(max=m, positions=res["positions"], wall_s=res["wall_s"],
+                launches=launches)
+
+
+def compress_flips(kind: str, seen: list, comp) -> tuple:
+    """The one-device call (seen[0]) and the mesh's (seen[1]), each
+    (gradient, residuals, compressed), entry by entry against their
+    inputs x = g + r, each side's constant c (top-k threshold, int8
+    scale) `compression.leaf_constant` of its own x. An entry flips where
+    its compressed value differs: a top-k mask bit, an int8 level. It
+    spans an edge where an edge (the threshold, or (k + 0.5) c for int8)
+    under either side's constant lies between the two x, ends included;
+    it straddles one where the two x lie strictly on opposite sides of it
+    under both constants. Every flip must span an edge and every straddle
+    must flip: straddles <= flips <= spans. Per step: dict(flips, spans,
+    straddles, within (flips whose one-device x lies within COMPRESS_TIE
+    of its edge, relative to the threshold or in levels), unexplained
+    (flips that span no edge), missed (straddles that did not flip),
+    far: per leaf with a flip off the tie band (leaf, count, the largest
+    distance, the largest relative |x_one - x_mesh| among them)), and the
+    flip masks by leaf."""
+    (g1, r1, h1), (g2, r2, h2) = seen
+    n = dict(flips=0, spans=0, straddles=0, within=0, unexplained=0,
+             missed=0, far=[])
+    flipped = {}
+    for (k, a), (_, b), (_, ra), (_, rb), (_, ha), (_, hb) in zip(
+            pspec_leaves(g1), pspec_leaves(g2), pspec_leaves(r1),
+            pspec_leaves(r2), pspec_leaves(h1), pspec_leaves(h2)):
+        xa = a.float() + ra
+        xb = b.float() + rb
+        ca, cb = (compression_mod.leaf_constant([x], x.numel(), comp,
+                                                x.device) for x in (xa, xb))
+        if kind == "topk":
+            flip = (ha != 0) != (hb != 0)
+            ua, ub = xa.abs(), xb.abs()
+            cl, ch = torch.minimum(ca, cb), torch.maximum(ca, cb)
+            span = (torch.minimum(ua, ub) <= ch) & (torch.maximum(ua, ub)
+                                                    >= cl)
+            straddle = ((ua >= ch) & (ub < cl)) | ((ub >= ch) & (ua < cl))
+            dist = (ua - ca).abs() / ca
+        else:
+            flip = torch.round(ha / ca) != torch.round(hb / cb)
+            ys = [xa / ca, xa / cb, xb / ca, xb / cb]
+            lo = torch.minimum(torch.minimum(ys[0], ys[1]),
+                               torch.minimum(ys[2], ys[3]))
+            hi = torch.maximum(torch.maximum(ys[0], ys[1]),
+                               torch.maximum(ys[2], ys[3]))
+            span = torch.ceil(lo - 0.5) <= torch.floor(hi - 0.5)
+            reg = [torch.floor(y + 0.5) for y in ys]
+            on_edge = torch.zeros_like(flip)
+            for y, r in zip(ys, reg):
+                on_edge |= (y + 0.5) == r
+            straddle = ((reg[0] == reg[1]) & (reg[2] == reg[3])
+                        & (reg[0] != reg[2]) & ~on_edge)
+            u = (xa / ca).abs()
+            dist = (u - u.floor() - 0.5).abs()
+            del ys, lo, hi, reg, on_edge, u
+        edge = dist <= COMPRESS_TIE
+        n["flips"] += int(flip.sum())
+        n["spans"] += int(span.sum())
+        n["straddles"] += int(straddle.sum())
+        n["within"] += int((flip & edge).sum())
+        n["unexplained"] += int((flip & ~span).sum())
+        n["missed"] += int((straddle & ~flip).sum())
+        flipped[k] = flip
+        sel = flip & ~edge
+        if sel.any():
+            rel = ((xa - xb).abs() / xa.abs().clamp_min(1e-30))[sel]
+            n["far"].append((k, int(sel.sum()), float(dist[sel].max()),
+                             float(rel.max())))
+    return n, flipped
+
+
+def compress_equals_one_device(seen_mesh, comp) -> int:
+    """The mesh's compressed gradient and residuals against the one-
+    device scheme (`compression.compress_decompress`) applied to the
+    mesh's own gathered gradient and residuals: the leaves that differ
+    (0 when bit-equal)."""
+    grads, res, (hat, new_res) = seen_mesh
+    bad = 0
+    for (_, g), (_, r), (_, h), (_, nr) in zip(
+            pspec_leaves(grads), pspec_leaves(res), pspec_leaves(hat),
+            pspec_leaves(new_res)):
+        want_h, want_r = compression_mod.compress_decompress(g, r, comp)
+        bad += not (torch.equal(h, want_h) and torch.equal(nr, want_r))
+    return bad
+
+
+def compress_against_one(kind: str, dev) -> dict:
+    """15e for one scheme: driver steps with --compress over (2, 2)
+    virtual shards and on one device, each step from the one-device
+    run's state (parameters, moments, residuals). Gates: the mesh's
+    compression equals the one-device scheme on its own gathered
+    gradient bit for bit; every flip between the two runs spans an edge
+    between their inputs and every straddle flips (`compress_flips`);
+    13a's gates, the update gate over the entries that did not flip. The
+    flips are counted and reported (module docstring)."""
+    cfg = dataclasses.replace(get_arch(DRY_ARCH), dtype="float32")
+    run = COMPRESS_RUN
+    args = lm_mesh_args(run, cfg)
+    opt_cfg = train_driver.opt_config(args, cfg)
+    comp = train_driver.CompressionConfig(kind=kind)
+    mesh = lm_mesh(LM_MESH_SHAPE, dev)
+    one, sh = mesh_and_one(cfg, mesh, dev, f"15e {kind}", fan_in=True)
+    o_shard = lm_steps.opt_shardings(sh, mesh)
+    p_shard = sh.shardings()
+    states = [adamw.init(m.params(), opt_cfg) for m in (one, sh)]
+    res_one = compression_mod.init_residuals(one.params())
+    shape = ShapeConfig("custom", "train", run["seq"], run["batch"])
+    seen = []
+
+    def spy(grads, residuals, c):
+        out = compression_mod.apply_tree(grads, residuals, c)
+        seen.append((grads, residuals, out))
+        return out
+    rows = []
+    saved, train_driver.apply_tree = train_driver.apply_tree, spy
+    try:
+        for i in range(run["steps"]):
+            batch = lm_data.synthetic_batch(cfg, shape, i, device=dev)
+            if i:
+                sh.load_state_dict(one.state_dict())
+                states[1] = D.shard_tree(states[0], o_shard)
+            res_sh = D.shard_tree(res_one, p_shard)
+            steps = [train_driver.make_step(one, opt_cfg, comp, res_one),
+                     train_driver.make_step(sh, opt_cfg, comp, res_sh)]
+            before = [{k: v.clone() for k, v in m.state_dict().items()}
+                      for m in (one, sh)]
+            m_prev = {k: v.clone() for k, v in pspec_leaves(states[0].m)}
+            seen.clear()
+            mets = []
+            for j in range(2):
+                states[j], met = steps[j](states[j], batch)
+                mets.append({k: float(v) for k, v in met.items()})
+            res_one = seen[0][2][1]
+            bad = compress_equals_one_device(seen[1], comp)
+            calls = [(g, r, out[0]) for g, r, out in seen]
+            fl, flipped = compress_flips(kind, calls, comp)
+            grad = {k: (v - opt_cfg.b1 * m_prev[k]) / (1 - opt_cfg.b1)
+                    for k, v in pspec_leaves(states[0].m)}
+            keep = {k: ~v for k, v in flipped.items()}
+            after = sh.state_dict()
+            err = update_error(
+                {k: v[keep[k]] for k, v in before[1].items()},
+                {k: v[keep[k]] for k, v in after.items()},
+                {k: v[keep[k]] for k, v in before[0].items()},
+                {k: v[keep[k]] for k, v in one.state_dict().items()},
+                {k: v[keep[k]] for k, v in grad.items()}, mets[0]["lr"])
+            rel = {k: abs(mets[1][k] - mets[0][k]) / abs(mets[0][k])
+                   for k in ("loss", "grad_norm")}
+            reps = replicas_equal(sh.params()) and replicas_equal(states[1])
+            rows.append(dict(loss=mets[1]["loss"], rel=rel,
+                             update_err_lr=err, replicas=reps,
+                             unequal_leaves=bad, **fl))
+            check(bad == 0, f"15e {kind} step {i}: {bad} leaves of the "
+                  "mesh's compression differ from the one-device scheme "
+                  "on the same gradient")
+            check(fl["unexplained"] == 0 and fl["missed"] == 0,
+                  f"15e {kind} step {i}: {fl['unexplained']} of "
+                  f"{fl['flips']} flips span no edge between the two "
+                  f"inputs, {fl['missed']} of {fl['straddles']} straddles "
+                  "did not flip")
+            check(reps, f"15e {kind} step {i}: replicas differ")
+            check(rel["loss"] <= 1e-5 and rel["grad_norm"] <= 1e-5,
+                  f"15e {kind} step {i}: loss/grad norm relative |Δ| {rel}")
+            check(err <= 1e-3, f"15e {kind} step {i}: update |Δ| {err:.2e} lr")
+            del before, m_prev, grad, calls, after, flipped, keep
+    finally:
+        train_driver.apply_tree = saved
+    log(f"[dryrun 15e] --compress {kind}, {cfg.name} float32 with "
+        f"`fan_in_attention`, {run['steps']} driver steps at "
+        f"{run['batch']} x {run['seq']} over (2, 2) virtual shards vs one "
+        f"device, each from the one-device state; the mesh's compression "
+        f"bit-equal to the one-device scheme on its gathered gradient: "
+        + "; ".join(f"step {i}: loss {r['loss']:.6f} (rel "
+                    f"{r['rel']['loss']:.1e}), grad norm rel "
+                    f"{r['rel']['grad_norm']:.1e}, updates "
+                    f"{r['update_err_lr']:.1e} lr past two ulps (flips left "
+                    f"out), replicas bit-equal {r['replicas']}; compressed "
+                    f"entries flipped against one device {r['flips']} "
+                    f"(straddling an edge {r['straddles']}, spanning one "
+                    f"{r['spans']}; unexplained {r['unexplained']}, missed "
+                    f"{r['missed']}), {r['within']} within {COMPRESS_TIE} of "
+                    f"their edge, the rest (leaf, count, largest distance, "
+                    f"largest relative |x_one - x_mesh|) {r['far']}"
+                    for i, r in enumerate(rows)) + f" ({card_line()})")
+    del one, sh, states
+    torch.cuda.empty_cache()
+    return dict(rows=rows)
+
+
+def phase_dry_compress(dev=torch.device("cuda")) -> dict:
+    """15e: topk and int8 against one device, then `launch.train.run`
+    itself with each over the (2, 2) virtual shards, two steps."""
+    out = {kind: compress_against_one(kind, dev)
+           for kind in ("topk", "int8")}
+    cfg = dataclasses.replace(get_arch(DRY_ARCH), dtype="float32")
+    model = Model(cfg, device=dev, seed=0, mesh=lm_mesh(LM_MESH_SHAPE, dev))
+    ckpt_dir = os.path.join(ROOT, "build", "dry_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for kind in ("topk", "int8"):
+        args = train_driver.parser().parse_args([
+            "--arch", cfg.name, "--batch", str(COMPRESS_RUN["batch"]),
+            "--seq", str(COMPRESS_RUN["seq"]), "--steps", "2", "--compress",
+            kind, "--ckpt-dir", ckpt_dir])
+        res = train_driver.run(args, log=lambda m: None, model=model)
+        losses = [m["loss"] for m in res["metrics"]]
+        check(len(losses) == 2 and all(map(math.isfinite, losses)),
+              f"15e: launch.train.run --compress {kind} on (2, 2): {losses}")
+        out[f"run_{kind}"] = losses
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"[dryrun 15e] launch.train.run --compress topk / int8 on the (2, 2) "
+        f"virtual shards, 2 steps each: losses {out['run_topk']} / "
+        f"{out['run_int8']}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dry_profiler(dev=torch.device("cuda")) -> dict:
+    """15f: `obs.torch_profiler_trace` around one hd1080 frame through K1
+    and K2: the Chrome trace holds both kernels' device events."""
+    engine, name = hd1080_engine()
+    plan = engine.plan_for(name, 1088, 1920)
+    cam = hd1080_cameras(N_REQUESTS)[0].to(engine.device)
+    scene = engine.scene(name)
+    plan.render_with_stats(scene, cam)                  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    logdir = os.path.join(ROOT, "build", "trace", "profiler")
+    with obs.torch_profiler_trace(logdir) as h:
+        plan.render_with_stats(scene, cam)
+        torch.cuda.synchronize()
+    launches = launches_now()
+    with open(h.path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {s: sum(s in e.get("name", "") for e in kernels)
+             for s in (K1_SYMBOL, K2_SYMBOL)}
+    check(all(found.values()), f"15f: the trace's kernel events {found}")
+    check(found[K1_SYMBOL] == launches["prtu_entry_cat_mask"]
+          and found[K2_SYMBOL] == launches["blend_tiles_fused"],
+          f"15f: kernel events {found} vs launches {launches}")
+    log(f"[dryrun 15f] torch_profiler_trace around one 1920x1088 frame: "
+        f"{len(events)} events, {len(kernels)} kernel events, K1 "
+        f"({K1_SYMBOL}) {found[K1_SYMBOL]}, K2 ({K2_SYMBOL}) "
+        f"{found[K2_SYMBOL]} = the wrappers' launches {launches}; "
+        f"{os.path.relpath(h.path, ROOT)}")
+    os.remove(h.path)
+    del engine
+    torch.cuda.empty_cache()
+    return dict(events=len(events), kernel_events=len(kernels),
+                found=found, launches=launches)
+
+
+def phase_dryrun() -> dict:
+    """Phase 15: 15a-15f. K1-K4 are launched by 15f alone."""
+    reset_launches()
+    prtu.dense_launches = render.full_launches = 0
+    dev = torch.device("cuda")
+    out = {}
+    out["card"] = timed_phase("dryrun 15a", phase_dry_card, dev)
+    out["mesh"] = timed_phase("dryrun 15b", phase_dry_mesh, dev)
+    out["cells"] = timed_phase("dryrun 15c", phase_dry_cells)
+    out["render"] = timed_phase("dryrun 15d", phase_dry_render, dev)
+    out["compress"] = timed_phase("dryrun 15e", phase_dry_compress, dev)
+    launches = dry_launches()
+    check(not any(launches.values()),
+          f"dryrun: 15a-15e launched kernels {launches}")
+    out["launches"] = launches
+    out["profiler"] = timed_phase("dryrun 15f", phase_dry_profiler, dev)
     return out
 
 
@@ -4869,6 +5408,15 @@ def lm_mesh_families_only(summary: dict, json_path) -> int:
     return 0
 
 
+def dryrun_only(summary: dict, json_path) -> int:
+    """Phase 15 alone. Prints the card line and the contract's last line."""
+    summary["dryrun"] = timed_phase("dryrun", phase_dryrun)
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
 def ok_line() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4918,6 +5466,10 @@ def main() -> int:
                         help="run only the build and phase 14 (the MoE/MLA,"
                         " SSM, hybrid and enc-dec families over a mesh of "
                         "virtual shards of the card)")
+    parser.add_argument("--dryrun-only", action="store_true",
+                        help="run only the build and phase 15 (the dry-runs "
+                        "and roofline, --compress over a mesh, the torch "
+                        "profiler hook)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4954,6 +5506,8 @@ def main() -> int:
         return lm_mesh_only(summary, args.json)
     if args.lm_mesh_families_only:
         return lm_mesh_families_only(summary, args.json)
+    if args.dryrun_only:
+        return dryrun_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -5025,6 +5579,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     summary["lm_mesh_families"] = timed_phase("lm-mesh-families",
                                               phase_lm_mesh_families)
+    torch.cuda.empty_cache()
+    summary["dryrun"] = timed_phase("dryrun", phase_dryrun)
     shard_rows = {"prtu_entry_cat_mask": summary["shards"]["kernels"]["k1"],
                   "blend_tiles_fused": summary["shards"]["kernels"]["k2"]}
 
@@ -5057,6 +5613,11 @@ def main() -> int:
             kname]
         kernels[-1]["lm_mesh_families_launches"] = summary[
             "lm_mesh_families"]["launches"][kname]
+        # Phase 15: 15a-15e (the dry-runs, compression) launch none; 15f
+        # profiles one frame through K1 and K2.
+        kernels[-1]["dryrun_launches"] = summary["dryrun"]["launches"][kname]
+        kernels[-1]["profiler_launches"] = summary["dryrun"]["profiler"][
+            "launches"].get(kname, 0)
         if kname == "prtu_entry_cat_mask":
             # Phase 10a: the render driver's run.
             kernels[-1].update(driver_launches=summary["driver"]["render"][

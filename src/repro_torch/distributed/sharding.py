@@ -33,6 +33,19 @@ The collectives are differentiable tensor operations on the one
 controller: all-gather is `.to(dev)` then `torch.cat`, all-reduce `.to`
 then a sum, reduce-scatter a sum then a split. Autograd carries their
 transposes: the gradient of a gathered shard is the sum of its uses.
+
+Under `counting()` every collective appends (kind, bytes of one
+position's result, positions that receive it) to the counter's
+`records`, with the reference's kinds ("all-gather", "all-reduce",
+"reduce-scatter", "collective-permute"): one record per call of the
+controller, which a real mesh runs as one op on each of those positions
+(`launch.roofline.collective_bytes` turns the records into per-device
+bytes). On a mesh of repeated devices a collective computes once per
+distinct device and its positions there share the result; the record
+still counts every position, and the counter's `shared(tensor, k)` hears
+that k positions hold that one tensor (the dry-run's memory tracker
+counts it k times). Outside `counting()` nothing is recorded and the
+check costs one list test a call.
 """
 from __future__ import annotations
 
@@ -323,7 +336,67 @@ def gather_over(pieces: Sequence, sharding: NamedSharding, axes) -> list:
         if (key, dev) not in made:
             made[key, dev] = _assemble(groups[key], counts, dev)
         out.append(made[key, dev])
+    if math.prod(counts) > 1:
+        count("all-gather", out[0], len(out))
+        note_shared(out)
     return out
+
+
+# --- the collective counter ------------------------------------------------
+
+class CollectiveCounter:
+    """The records of `counting()`: `records` is a list of (kind, bytes of
+    one position's result, positions). `shared` is a hook for a memory
+    tracker: a collective calls it with each result that k > 1 positions
+    of a mesh of repeated devices share."""
+
+    def __init__(self):
+        self.records: list = []
+
+    def collective(self, kind: str, nbytes: int, positions: int) -> None:
+        self.records.append((kind, nbytes, positions))
+
+    def shared(self, tensor: torch.Tensor, k: int) -> None:
+        pass
+
+
+_COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def counting(counter: Optional[CollectiveCounter] = None):
+    """Record every collective of the block into `counter` (default a new
+    `CollectiveCounter`), which the block gets."""
+    c = counter if counter is not None else CollectiveCounter()
+    _COUNTERS.append(c)
+    try:
+        yield c
+    finally:
+        _COUNTERS.remove(c)
+
+
+def count(kind: str, result, positions: int) -> None:
+    """Record one collective: `result` is one position's result (a tensor
+    or a list of them), and `positions` positions receive one like it.
+    A no-op outside `counting()`."""
+    if _COUNTERS:
+        parts = result if isinstance(result, (list, tuple)) else [result]
+        nbytes = sum(x.numel() * x.element_size() for x in parts)
+        for c in _COUNTERS:
+            c.collective(kind, nbytes, positions)
+
+
+def note_shared(results: list) -> None:
+    """Tell the counters which of `results` (one per position) several
+    positions share (the same tensor object, computed once a device)."""
+    if _COUNTERS:
+        seen: dict = {}
+        for r in results:
+            seen.setdefault(id(r), [r, 0])[1] += 1
+        for r, k in seen.values():
+            if k > 1:
+                for c in _COUNTERS:
+                    c.shared(r, k)
 
 
 # --- collectives over one mesh axis ------------------------------------------
@@ -331,24 +404,38 @@ def gather_over(pieces: Sequence, sharding: NamedSharding, axes) -> list:
 # `pieces[i]` lives on position i of the axis, `devices[i]` is its device.
 # Each position's result is computed on its device, in axis order, so that
 # every position holds the same bits; positions sharing a device share it.
+# `devices` may also be the one device that a sum or a gather lands on,
+# repeated once per position that a real mesh would hand the result to.
+# Every cross-position sum or gather of the models and optimizers goes
+# through these functions, so that `counting()` hears it.
 
 def all_gather(pieces: Sequence, dim: int, devices: Sequence) -> list:
     made = {}
     for d in devices:
         if d not in made:
             made[d] = torch.cat([p.to(d) for p in pieces], dim)
-    return [made[d] for d in devices]
+    out = [made[d] for d in devices]
+    if len(pieces) > 1:
+        count("all-gather", out[0], len(out))
+        note_shared(out)
+    return out
 
 
-def all_reduce(pieces: Sequence, devices: Sequence) -> list:
+def all_reduce(pieces: Sequence, devices: Sequence, op=None) -> list:
+    """The pieces summed (or folded by `op`, say `torch.maximum`) in axis
+    order onto each of `devices`."""
     made = {}
     for d in devices:
         if d not in made:
             s = pieces[0].to(d)
             for p in pieces[1:]:
-                s = s + p.to(d)
+                s = s + p.to(d) if op is None else op(s, p.to(d))
             made[d] = s
-    return [made[d] for d in devices]
+    out = [made[d] for d in devices]
+    if len(pieces) > 1:
+        count("all-reduce", out[0], len(out))
+        note_shared(out)
+    return out
 
 
 def reduce_scatter(pieces: Sequence, dim: int, devices: Sequence) -> list:
@@ -360,6 +447,8 @@ def reduce_scatter(pieces: Sequence, dim: int, devices: Sequence) -> list:
         for q in parts[1:]:
             s = s + q.to(d)
         out.append(s)
+    if n > 1:
+        count("reduce-scatter", out[0], n)
     return out
 
 

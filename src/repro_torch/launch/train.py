@@ -17,9 +17,11 @@ sees the batches an uninterrupted one would. `--production-mesh` and
 16 x 16 devices) over the visible CUDA devices, which raises ValueError
 with the count on a machine with fewer; on such a mesh any arch is
 placed by the sharding rules, the step runs sharded, and checkpoints
-hold the gathered state. `--compress` on a sharded step raises
-ValueError: compressing a gradient split into shards is a slice of its
-own.
+hold the gathered state. `--compress` runs on one device and over a
+mesh alike: the residuals are placed as the parameters, and each leaf
+is compressed with the whole leaf's top-k threshold or int8 scale, so
+that the sharded step's compressed gradient equals the one-device
+step's on the same gradient (`optim.compression`).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from repro_torch.launch.mesh import add_mesh_args, mesh_of
 from repro_torch.launch.serve import lm_model
 from repro_torch.launch.steps import (_tensors, make_train_step,
                                      moment_dtype)
-from repro_torch.models.model import Model, is_sharded
+from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import (CompressionConfig, apply_tree,
                                            init_residuals)
@@ -66,19 +68,17 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def make_step(model: Model, opt_cfg, comp_cfg):
+def make_step(model: Model, opt_cfg, comp_cfg, residuals=None):
     """The driver's step, as the reference's: one AdamW update from the
     gradient of the whole batch (no microbatches), compressed with error
     feedback when `comp_cfg.kind` is not "none" (the residuals live in
-    the step). step(opt_state, batch) -> (opt_state, metrics)."""
+    the step, placed as the parameters over a mesh; `residuals` starts
+    them from a given tree instead of zeros). step(opt_state, batch) ->
+    (opt_state, metrics)."""
     transform = None
-    if comp_cfg.kind != "none" and is_sharded(model.mesh):
-        raise ValueError("--compress runs on one device; compressing a "
-                         "gradient split into shards (its error feedback "
-                         "held per shard) comes with the slice that ports "
-                         "--compress over a mesh")
     if comp_cfg.kind != "none":
-        residuals = init_residuals(model.params())
+        if residuals is None:
+            residuals = init_residuals(model.params())
 
         def transform(grads):
             nonlocal residuals

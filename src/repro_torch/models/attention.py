@@ -270,7 +270,7 @@ def attend_train_tp(p, xs, cfg: ModelConfig, causal: bool = True):
     "model" rule, else all heads."""
     b, s, _ = xs[0].shape
     nm = len(xs)
-    positions = torch.arange(s).expand(b, s)
+    positions = torch.arange(s, device=xs[0].device).expand(b, s)
     outs, kvs = [], []
     for m, (pm, (q, k, v)) in enumerate(zip(p, _qkv_tp(p, xs, cfg,
                                                        positions))):
@@ -382,4 +382,9 @@ def combine_blocks(parts, devices) -> list:
                 t = o.to(dev) * w[..., None]
                 num = t if num is None else num + t
             made[dev] = num / den[..., None]
-    return [made[d] for d in devices]
+    out = [made[d] for d in devices]
+    if len(parts) > 1:                  # every block's parts, everywhere
+        D.count("all-gather", [x for part in parts for x in part],
+                len(devices))
+        D.note_shared(out)
+    return out

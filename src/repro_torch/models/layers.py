@@ -135,10 +135,13 @@ def paired_blocks(pieces, devices, what: str = "the SwiGLU pairing") -> list:
         raise ValueError(f"a half of width {f} is not divided by the {nm} "
                          f"model shards, which {what} needs")
     fl = f // nm
-    return [torch.cat([_take(pieces, m * fl, (m + 1) * fl, -1, dev),
-                       _take(pieces, f + m * fl, f + (m + 1) * fl, -1,
-                             dev)], -1)
-            for m, dev in enumerate(devices)]
+    out = [torch.cat([_take(pieces, m * fl, (m + 1) * fl, -1, dev),
+                      _take(pieces, f + m * fl, f + (m + 1) * fl, -1,
+                            dev)], -1)
+           for m, dev in enumerate(devices)]
+    if nm > 1:
+        D.count("collective-permute", out[0], nm)
+    return out
 
 
 def mlp_apply_tp(p, xs, cfg: ModelConfig, devices, act=None) -> list:
@@ -222,20 +225,20 @@ def softmax_xent_tp(logits, labels) -> torch.Tensor:
     dev = logits[0].device
     ls = [x.float() for x in logits]
     n = ls[0].shape[-1]
-    gmax = torch.amax(torch.stack([torch.amax(x, dim=-1).detach().to(dev)
-                                   for x in ls]), 0)
-    se = None
-    ll = None
+    on = [dev] * len(ls)
+    gmax = D.all_reduce([torch.amax(x, dim=-1).detach() for x in ls], on,
+                        op=torch.maximum)[0]
+    es, vs = [], []
     lab = labels.clamp(min=0)
     for m, x in enumerate(ls):
         xd = x.device
-        e = torch.sum(torch.exp(x - gmax.to(xd)[..., None]), dim=-1).to(dev)
-        se = e if se is None else se + e
+        es.append(torch.sum(torch.exp(x - gmax.to(xd)[..., None]), dim=-1))
         loc = lab.to(xd) - m * n
         hit = (loc >= 0) & (loc < n)
         v = torch.gather(x, -1, loc.clamp(0, n - 1)[..., None])[..., 0]
-        v = (v * hit).to(dev)
-        ll = v if ll is None else ll + v
+        vs.append(v * hit)
+    se = D.all_reduce(es, on)[0]
+    ll = D.all_reduce(vs, on)[0]
     lse = gmax + torch.log(se)
     mask = labels.to(dev) >= 0
     return torch.sum((lse - ll) * mask)

@@ -153,7 +153,7 @@ def mla_train_tp(p, xs, cfg: ModelConfig):
     computes the whole latent and attends with its heads. Returns each
     position's partial output and its (whole) latent."""
     b, s, _ = xs[0].shape
-    positions = torch.arange(s).expand(b, s)
+    positions = torch.arange(s, device=xs[0].device).expand(b, s)
     outs, lats = [], []
     for pm, x in zip(p, xs):
         y, lat = _attend(pm, x, cfg, positions.to(x.device))

@@ -881,7 +881,9 @@ class Model(nn.Module):
         dev = self.mesh.primary
         rows = [torch.cat([x.to(dev) for x in ls], -1)
                 for ls in (logits_rows if split else logits_rows[:1])]
-        return torch.cat(rows, 0)
+        whole = torch.cat(rows, 0)
+        D.count("all-gather", whole, 1)      # onto the primary device
+        return whole
 
     def _tp_forward(self, batch):
         rows, split = self._tp_rows(batch)
@@ -899,10 +901,10 @@ class Model(nn.Module):
         p = self.compute_params()
         xs_rows, shapes, aux, _ = self._tp_hidden(p, rows, split)
         dev = self.mesh.primary
-        total = None
-        for rb, ls in zip(rows, self._tp_logits(p, xs_rows, shapes)):
-            nll = L.softmax_xent_tp(ls, rb["labels"]).to(dev)
-            total = nll if total is None else total + nll
+        total = D.all_reduce(
+            [L.softmax_xent_tp(ls, rb["labels"]) for rb, ls in
+             zip(rows, self._tp_logits(p, xs_rows, shapes))],
+            [dev] * len(rows))[0]
         count = torch.clamp(torch.sum(batch["labels"].to(dev) >= 0), min=1)
         return total / count + 0.01 * aux
 

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as D
 from repro_torch.models.layers import (mlp_apply, mlp_apply_tp, mlp_specs,
                                        silu)
 from repro_torch.models.pspec import PSpec
@@ -219,15 +220,19 @@ def moe_apply_tp(p_rows, hs_rows, cfg: ModelConfig, devs_rows,
         if all(t % g == 0 for t in tok):
             res = [_moe_row(p, hs, cfg, devs, g)
                    for p, hs, devs in zip(p_rows, hs_rows, devs_rows)]
-            sums = tuple(sum(x[1][i].to(dev0) for x in res)
+            sums = tuple(D.all_reduce([x[1][i] for x in res],
+                                      [dev0] * len(res))[0]
                          for i in range(2))
             rts = [x[2] for x in res]
         else:
             res = []
             lo = 0
-            for p, hs, devs in zip(p_rows, hs_rows, devs_rows):
-                whole = [torch.cat([h[m].to(dev) for h in hs_rows])
-                         for m, dev in enumerate(devs)]
+            gath = [D.all_gather([h[m] for h in hs_rows], 0,
+                                 [devs[m] for devs in devs_rows])
+                    for m in range(len(devs_rows[0]))]
+            for r, (p, hs, devs) in enumerate(zip(p_rows, hs_rows,
+                                                  devs_rows)):
+                whole = [gm[r] for gm in gath]
                 outs, sm, rt = _moe_row(p, whole, cfg, devs, g)
                 br = hs[0].shape[0]
                 res.append(([y[lo:lo + br] for y in outs], sm, rt))
@@ -235,6 +240,6 @@ def moe_apply_tp(p_rows, hs_rows, cfg: ModelConfig, devs_rows,
             sums, rts = res[0][1], [res[0][2]]
     me, pe = (x.to(dev0) / total for x in sums)
     aux = e * torch.sum(me * pe)
-    routing = dict(slot=torch.cat([r.slot.to(dev0) for r in rts]),
-                   keep=torch.cat([r.keep.to(dev0) for r in rts]))
+    routing = {k: D.all_gather([getattr(r, k) for r in rts], 0, [dev0])[0]
+               for k in ("slot", "keep")}
     return [x[0] for x in res], aux, routing

@@ -7,7 +7,8 @@ metrics registry, and exporters.
     metrics  — `MetricsRegistry` (counters/gauges/histograms with label
                sets, Prometheus text exposition), `get_registry`
     export   — JSONL span logs, Chrome trace-event JSON for Perfetto,
-               metrics file dump
+               metrics file dump, `torch_profiler_trace` (a device
+               profile written as a Chrome trace)
 """
 from repro_torch.obs.trace import (NoopTracer, Span, Tracer, current,
                                    set_tracer, use_tracer)
@@ -15,6 +16,7 @@ from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, get_registry)
 from repro_torch.obs.export import (chrome_trace, prometheus_text,
                                     read_jsonl, span_records,
+                                    torch_profiler_trace,
                                     write_chrome_trace, write_jsonl,
                                     write_metrics)
 
@@ -23,4 +25,5 @@ __all__ = [
     "MetricsRegistry", "Counter", "Gauge", "Histogram", "get_registry",
     "span_records", "write_jsonl", "read_jsonl", "chrome_trace",
     "write_chrome_trace", "prometheus_text", "write_metrics",
+    "torch_profiler_trace",
 ]

@@ -13,12 +13,17 @@ schema:
   registry's scrape-format dump (`MetricsRegistry.expose` does the real
   work; this module only adds the file plumbing).
 
-A device-level profile comes from `torch.profiler` directly; the port has
-no counterpart of the reference's `jax_profiler_trace` pass-through.
+* **Device profile** (`torch_profiler_trace`): the counterpart of the
+  reference's `jax_profiler_trace`, a `torch.profiler` session around a
+  block that writes its Chrome trace under a log directory.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import time
+import warnings
 from typing import Iterable, Sequence, Union
 
 from repro_torch.obs.trace import NoopTracer, Span, Tracer
@@ -117,3 +122,47 @@ def prometheus_text(registry: MetricsRegistry) -> str:
 def write_metrics(registry: MetricsRegistry, path) -> None:
     with open(path, "w") as f:
         f.write(registry.expose())
+
+
+@contextlib.contextmanager
+def torch_profiler_trace(logdir, enabled: bool = True):
+    """`torch.profiler.profile` around the block, the CPU activity and,
+    whenever `torch.cuda.is_available()`, the CUDA activity, its Chrome
+    trace written on exit to `logdir/trace_<pid>_<ns>.json` (the path is
+    the yielded holder's `path`). `enabled=False` is a no-op (it yields
+    None). Where the profiler cannot start, it warns and runs the block
+    without a profile, as the reference's `jax_profiler_trace` does; it
+    never drops the CUDA activity and profiles the CPU alone."""
+    if not enabled:
+        yield None
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    holder = _TraceFile(os.path.join(
+        str(logdir), f"trace_{os.getpid()}_{time.perf_counter_ns()}.json"))
+    try:
+        prof = profile(activities=acts)
+        prof.__enter__()
+    except Exception as exc:                      # pragma: no cover - env
+        warnings.warn(f"torch.profiler unavailable ({exc!r}); continuing "
+                      "without a device profile")
+        yield holder
+        return
+    try:
+        yield holder
+    finally:
+        prof.__exit__(None, None, None)
+        os.makedirs(str(logdir), exist_ok=True)
+        prof.export_chrome_trace(holder.path)
+        holder.written = True
+
+
+class _TraceFile:
+    """Where `torch_profiler_trace` writes its trace, and whether it did."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.written = False

@@ -27,6 +27,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.checkpoint.ckpt import flatten, unflatten
+from repro_torch.distributed import sharding as D
 from repro_torch.distributed.sharding import NamedSharding, Sharded
 from repro_torch.optim.adamw import AdamWConfig, global_norm, lr_at
 
@@ -181,10 +182,7 @@ def apply(params, grads, state: AdafactorState, cfg: AdafactorConfig):
             return [b[:d] + (j,) + b[d + 1:] for j in range(counts[d])]
 
         def total(parts, dev):
-            out = None
-            for x in parts:
-                out = x.to(dev) if out is None else out + x.to(dev)
-            return out
+            return D.all_reduce(parts, [dev] * len(parts))[0]
 
         us, row, col, full = {}, {}, {}, {}
         if _should_factor(p.shape, cfg):

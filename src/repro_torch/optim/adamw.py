@@ -28,6 +28,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.checkpoint.ckpt import flatten, unflatten
+from repro_torch.distributed import sharding as D
 from repro_torch.distributed.sharding import Sharded
 
 
@@ -97,25 +98,23 @@ def global_norm(tree) -> torch.Tensor:
     distinct blocks each once, in mesh order, on its primary device."""
     total = None
     for x in flatten(tree):
-        dev = _device_of(x)
-        for b in _blocks(x):
-            sq = torch.sum(torch.square(b.float())).to(dev)
-            total = sq if total is None else total + sq
+        n = x.sharding.mesh.size if isinstance(x, Sharded) else 1
+        sq = D.all_reduce([torch.sum(torch.square(b.float()))
+                           for b in _blocks(x)], [_device_of(x)] * n)[0]
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 def sum_replicas(g: Sharded) -> Sharded:
-    """Each block's gradient summed over the positions that hold it (mesh
-    order, on the first's device), handed to each of them on its device
-    (the all-reduce of a data-parallel gradient)."""
+    """Each block's gradient summed over the positions that hold it, in
+    mesh order on each holder's device (once a device): the all-reduce of
+    a data-parallel gradient."""
     out = list(g.pieces)
     for grp in g.sharding.replica_groups():
-        dev = g.pieces[grp[0]].device
-        s = g.pieces[grp[0]]
-        for i in grp[1:]:
-            s = s + g.pieces[i].to(dev)
-        for i in grp:
-            out[i] = s.to(g.pieces[i].device)
+        s = D.all_reduce([g.pieces[i] for i in grp],
+                         [g.pieces[i].device for i in grp])
+        for i, x in zip(grp, s):
+            out[i] = x
     return Sharded(out, g.sharding)
 
 

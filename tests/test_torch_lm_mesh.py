@@ -655,8 +655,9 @@ def test_every_family_builds_on_a_mesh_and_compress_refused():
     update within 1e-6 [1.5e-8] where the one-device gradient exceeds
     1e-2 of its leaf's largest (a first step
     moves a parameter by about lr whatever its gradient's size, so a
-    gradient lost in rounding may move it the other way); `--compress` on a
-    sharded step still raises, naming the slice that will lift it."""
+    gradient lost in rounding may move it the other way); `--compress`,
+    once refused on a sharded step, now runs one int8 driver step on the
+    (2, 2, 2) mesh with its replicas left equal."""
     from repro_torch.optim.compression import CompressionConfig
     gen = torch.Generator().manual_seed(4)
     pod = cpu_mesh((2, 2, 2), ("pod", "data", "model"))
@@ -710,8 +711,11 @@ def test_every_family_builds_on_a_mesh_and_compress_refused():
             sel = g > 1e-2 * g.max()
             err = ((got[k] - before[k]) - (v - before[k])).abs()[sel]
             assert not err.numel() or float(err.max()) <= 1e-6, (name, k)
-    with pytest.raises(ValueError, match="ports --compress over a mesh"):
-        TR.make_step(sh, ST.make_opt_cfg(cfg), CompressionConfig(kind="int8"))
+    opt_cfg = adamw.AdamWConfig(lr=3e-6)
+    step = TR.make_step(sh, opt_cfg, CompressionConfig(kind="int8"))
+    _, met = step(adamw.init(sh.params(), opt_cfg), batch)
+    assert np.isfinite(float(met["loss"]))
+    assert_replicas_equal(sh.params())
 
 
 def test_sharded_checkpoint_resume_and_elastic_reshard(tmp_path):
