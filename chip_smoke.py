@@ -5,7 +5,8 @@
                           --sessions-only | --lod-only | --shards-only |
                           --train-only | --serve-only | --families-only |
                           --lm-train-only | --lm-mesh-only |
-                          --lm-mesh-families-only | --dryrun-only]
+                          --lm-mesh-families-only | --dryrun-only |
+                          --examples-only]
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each kernel against its plain PyTorch version at the shapes of its path,
@@ -23,6 +24,12 @@ Phases, in order:
      `prtu.alg1_quant` hook) over all 2**32 float32 bit patterns, in chunks
      of 2**28, one-value and paired, fp8 and fp16: bit-equal to the plain
      quantizer of core/precision.py (or both NaN), 0 mismatches
+  1c. `ops.stream_hierarchical_test_cuda` (Stage 1, one compaction pass
+     of k_max and the entry CAT on K1) on the hd1080 frame of phase 2
+     with the engine's plan: lists, valid bits, both entry masks and every
+     counter equal to the plan's `stage1_compact` + `ctu` on pass 0, K1
+     launched exactly once; its single-pass (CLAMP) overflow flag beside
+     the SPILL plan's; its wall beside the plan's stage-1 and CTU walls
   2. K1, the entry CAT (csrc/prtu_entry.cu), on one real spill pass: mask
      equal to the plain version under FULL_FP32 and MIXED, and the fp8
      overflow rule (|Δ| > 464 never hits)
@@ -77,7 +84,9 @@ Phases, in order:
         `RenderEngine(dataflow="dense")` (counted): walls, CAT mask bytes,
         peak device memory (the dense frame under 24 GiB); then, stage by
         stage, lists, gated entry masks, images and every shared counter
-        equal between the two dataflows;
+        equal between the two dataflows; `stream_hierarchical_test_cuda`
+        on the frame equal to the stream plan's stage 1 + CTU and to the
+        dense oracle's gathered masks, K1 launched exactly once;
      c. the AABB and OBB baselines: walls, work counters, PSNR against the
         CAT frame;
      d. the unfused baseline blend of the stream frame through K3
@@ -380,12 +389,32 @@ Phases, in order:
      f. `obs.torch_profiler_trace` around one 1920x1088 frame through K1
         and K2: the trace's kernel events name both kernels, as many as
         the wrappers launched
+  16. runs after 15: the port's examples and trace tools, each loaded by
+     path and run through its `main(argv)` in this process with `--device
+     cuda`, at its defaults:
+     a. examples/torch_quickstart.py (4000 Gaussians, 128², `--trace`
+        under build/examples/): flicker-cat's work/px below vanilla-aabb's,
+        flicker-fused's counters equal to flicker-cat's but the sweep's,
+        its swept/px below the padded list, every PSNR finite, the fused
+        frames within 2e-4 of the unfused ones, K2 once a pass of the
+        fused dispatch
+     b. examples/torch_serve_render.py --pallas (12 requests, 4000
+        Gaussians, 128²): every request answered, 12 frames in the
+        telemetry, K1 once a row range of each pass of each dispatch, K2
+        never
+     c. examples/torch_train_gaussians.py (600 Gaussians, 64², 20 of its
+        200 steps: a step costs 1.1-1.4 s here): the loss falls, the
+        pruned scene is smaller, PSNR finite
+     d. examples/torch_train_lm.py (reduced qwen1.5-0.5b, 30 steps of 4 x
+        64, int8 compression; checkpoints under build/examples/, removed
+        after): every loss the driver prints finite, step 29's among them
+     e. tools/torch_trace_smoke.py: exits 0
   5. one {"kernels": [...]} line (K1's and K2's rows also carry phase 8's
      shard_launches, shard_ms and shard_bound_ms, and phase 9d's
      train_launches; K1's also phase 10a's driver_launches; every row
      phase 13's lm_mesh_launches and phase 14's
      lm_mesh_families_launches, 0, phase 15a-e's dryrun_launches, 0, and
-     15f's profiler_launches), the card
+     15f's profiler_launches, and phase 16's examples_launches), the card
      line, and as the last line {"ok": true, "device": {...}}
 
 Exits non-zero without printing a result when CUDA is unavailable or any
@@ -397,7 +426,7 @@ plain frames itself); `--train-only` runs phases 1 and 9; `--serve-only`
 runs phases 1 and 10; `--families-only` phases 1 and 11; `--lm-train-only`
 phases 1 and 12; `--lm-mesh-only` phases 1 and 13;
 `--lm-mesh-families-only` phases 1 and 14; `--dryrun-only` phases 1 and
-15; `--offpath-only` runs
+15; `--examples-only` phases 1 and 16; `--offpath-only` runs
 phase 1, the 1024² setup,
 phase 6a and K3 on the 1024² frame's lists, and prints their times on
 the line before the card line and the contract's last line. A copy of this script placed
@@ -420,11 +449,15 @@ pairs the data needs.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import importlib.util
 import inspect
+import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1173,6 +1206,56 @@ def same_frame(a, b) -> bool:
                     for k in a.counters))
 
 
+def same_stream_out(a, b) -> bool:
+    """Lists, valid bits, both entry masks and every counter of two
+    `StreamHierarchyOut`s bit for bit (not the overflow flag)."""
+    return (all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in ("lists", "valid", "entry_sub_mask",
+                          "entry_mini_mask"))
+            and a.counters.keys() == b.counters.keys()
+            and all(torch.equal(a.counters[k], b.counters[k])
+                    for k in a.counters))
+
+
+def chained_ctu(plan, ps, label: str):
+    """`ops.stream_hierarchical_test_cuda` on a plan's frame (one pass of
+    k_max, the plan's CAT): K1 launched exactly once. Returns (the
+    `StreamHierarchyOut`, its wall in ms)."""
+    before = prtu.launches
+    h, ms = sync_wall_ms(lambda: ops.stream_hierarchical_test_cuda(
+        ps.proj, ps.grid, plan.test.mode, plan.test.precision,
+        k_max=plan.stream.k_max))
+    launched = prtu.launches - before
+    check(launched == 1, f"{label}: stream_hierarchical_test_cuda launched "
+          f"K1 {launched} times")
+    return h, ms
+
+
+def phase_chained_hd1080(plan, ps, streams, hout) -> dict:
+    """`stream_hierarchical_test_cuda` on the hd1080 frame against the
+    plan's pass 0 (`stage1_compact` + `ctu`) bit for bit; its single-pass
+    (CLAMP) overflow flag beside the SPILL plan's; its wall beside the
+    plan's stage-1 + CTU walls of the same frame (warm, each once)."""
+    h, _ = chained_ctu(plan, ps, "hd1080")
+    check(same_stream_out(h, hout), "hd1080: stream_hierarchical_test_cuda "
+          "differs from the plan's stage1_compact + ctu on pass 0")
+    _, ms = chained_ctu(plan, ps, "hd1080")
+    again, s1 = sync_wall_ms(lambda: plan.stage1_compact(ps))
+    _, ctu = sync_wall_ms(lambda: plan.ctu(ps, again[0]))
+    del again
+    out = dict(ms=ms, plan_stage1_ms=s1, plan_ctu0_ms=ctu,
+               clamp_overflow=bool(h.overflow),
+               spill_overflow=bool(streams[0].overflow),
+               entries=int(h.valid.sum()))
+    log(f"[hd1080] stream_hierarchical_test_cuda (k_max "
+        f"{plan.stream.k_max}, one pass): equal to the plan's pass 0 "
+        f"({out['entries']} entries), K1 once; {ms:.1f} ms against the "
+        f"plan's stage1_compact {s1:.1f} ms ({plan.n_passes} passes) + ctu "
+        f"pass 0 {ctu:.1f} ms; overflow: single pass (CLAMP) "
+        f"{out['clamp_overflow']}, SPILL plan {out['spill_overflow']}")
+    return out
+
+
 def device_profile(fn) -> tuple[float, list]:
     """(device-busy ms, [(kernel, ms), ...] by descending device time) of
     `fn` under torch.profiler, recording device activity only: a training
@@ -1791,7 +1874,17 @@ def phase_dense_vs_stream(pt: dict) -> dict:
           "dense entry masks differ from the stream CTU's")
     log(f"[1024] lists equal ({int(ts_s.valid.sum())} entries), gated "
         "entry masks equal")
-    del ts_d, gathered
+    chained, chained_ms = chained_ctu(plan, ps, "1024")
+    check(same_stream_out(chained, h_s), "1024: stream_hierarchical_test_"
+          "cuda differs from the plan's stage1_compact + ctu")
+    check(torch.equal(chained.entry_mini_mask, gathered), "1024: stream_"
+          "hierarchical_test_cuda differs from the dense oracle's masks")
+    log(f"[1024] stream_hierarchical_test_cuda: equal to the plan's stage1 "
+        f"+ ctu and to the dense oracle's gathered masks, K1 once, "
+        f"{chained_ms:.1f} ms (first call), overflow "
+        f"{bool(chained.overflow)}")
+    rows["chained_ms"] = chained_ms
+    del ts_d, gathered, chained
     for name, p in (("stream", plan), ("dense", dense)):
         rows[name]["stages_ms"] = stage_walls(p, scene, cam, f"1024 {name}")
     return dict(rows=rows, launches=launches, counters={
@@ -5273,6 +5366,191 @@ def phase_dryrun() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the examples and trace tools on the card
+# ---------------------------------------------------------------------------
+
+# Counters of the lane sweep, which the fused blend cuts by design; every
+# other counter of a frame is the same fused or not.
+FUSED_SWEEP_KEYS = ("swept_per_pixel", "kblocks_processed", "kblocks_total")
+
+
+def all_launches() -> dict:
+    """The four kernels' launch counts since their last reset."""
+    return {"prtu_entry_cat_mask": prtu.launches,
+            "blend_tiles_fused": render.launches,
+            "blend_tiles": render.full_launches,
+            "prtu_cat_mask": prtu.dense_launches}
+
+
+def load_script(rel: str):
+    """A script of the repo loaded by path as a module (not run)."""
+    path = os.path.join(ROOT, rel)
+    name = "smoke_" + os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_script(rel: str, argv: list, report: bool = True) -> tuple:
+    """(report dict or None, launches by kernel, wall s) of one script's
+    `main(argv)` in this process, on the card; fails unless it returns 0.
+    report: pass `main` a dict to fill (the scripts whose main takes
+    one)."""
+    main = load_script(rel).main
+    report = {} if report else None
+    before = all_launches()
+    t0 = time.perf_counter()
+    rc = main(argv + ["--device", "cuda"],
+              **({} if report is None else {"report": report}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in all_launches().items()}
+    check(rc == 0, f"16 {rel}: main returned {rc}")
+    log(f"[16] {rel} {' '.join(argv)}: rc 0 in {wall:.2f} s, launches "
+        f"{launched}")
+    return report, launched, wall
+
+
+def phase_quickstart(out_dir: str) -> dict:
+    """16a: the quickstart at its defaults with --trace: the reference's
+    claims, the fused frame against the unfused one, K2 once a pass."""
+    trace = os.path.join(out_dir, "quickstart_trace.json")
+    rep, launched, wall = run_script("examples/torch_quickstart.py",
+                                     ["--trace", trace])
+    rows = rep["designs"]
+    cat, fused = rows["flicker-cat"], rows["flicker-fused"]
+    check(all(math.isfinite(r["psnr"]) for r in rows.values()),
+          "16a: non-finite PSNR")
+    check(cat["work_px"] < rows["vanilla-aabb"]["work_px"],
+          "16a: flicker-cat's work/px is not below vanilla-aabb's")
+    same = sorted(k for k in cat["counters"] if k not in FUSED_SWEEP_KEYS)
+    differ = [k for k in same if cat["counters"][k] != fused["counters"][k]]
+    check(not differ, f"16a: flicker-fused's counters differ: {differ}")
+    check(fused["swept_px"] < cat["swept_px"], "16a: the fused sweep is "
+          "not below the padded list")
+    errs = [float((f.image - c.image).abs().max())
+            for f, c in zip(fused["results"], cat["results"])]
+    check(max(errs) <= 2e-4, f"16a: fused frames differ from the unfused "
+          f"by {max(errs)}")
+    passes = fused["results"][0].passes_run
+    check(launched["blend_tiles_fused"] == passes,
+          f"16a: K2 launched {launched['blend_tiles_fused']} times for "
+          f"{passes} passes of the fused dispatch")
+    check(rep["trace_spans"] > 0 and os.path.exists(trace),
+          "16a: no trace written")
+    log(f"[16a] k_max {rep['k_max']}; work/px "
+        + ", ".join(f"{n} {r['work_px']:.1f}" for n, r in rows.items())
+        + f"; swept/px cat {cat['swept_px']:.1f}, fused "
+        f"{fused['swept_px']:.1f}; PSNR "
+        + ", ".join(f"{n} {r['psnr']:.2f}" for n, r in rows.items())
+        + f"; fused vs unfused max |Δ| {max(errs):.2e}; {len(same)} shared "
+        f"counters equal; trace {rep['trace_spans']} spans")
+    return dict(wall_s=wall, launches=launched, k_max=rep["k_max"],
+                fused_passes=passes, max_abs_err_fused=max(errs),
+                designs={n: {k: r[k] for k in ("psnr", "work_px",
+                                               "swept_px", "fps")}
+                         for n, r in rows.items()})
+
+
+def phase_serve_example() -> dict:
+    """16b: the serving example at its defaults with --pallas: every
+    request answered, 12 frames in the telemetry, K1 once a row range of
+    each pass of each dispatch and K2 never."""
+    rep, launched, wall = run_script("examples/torch_serve_render.py",
+                                     ["--pallas"])
+    engine, results = rep["engine"], rep["results"]
+    check(len(results) == 12 and all(
+        bool(torch.isfinite(r.image).all()) for r in results),
+        "16b: a request went unanswered or non-finite")
+    check(engine.telemetry.total_frames == 12,
+          f"16b: telemetry counts {engine.telemetry.total_frames} frames")
+    dispatches = driver_dispatches(engine, results)
+    expected = sum(d["passes"] * len(d["ranges"])
+                   for d in dispatches.values())
+    check(launched["prtu_entry_cat_mask"] == expected > 0,
+          f"16b: K1 launched {launched['prtu_entry_cat_mask']} times for "
+          f"{expected} dispatch passes")
+    check(launched["blend_tiles_fused"] == 0, "16b: K2 launched")
+    log(f"[16b] {len(results)} requests in {len(dispatches)} dispatches "
+        f"(buckets {[d['bucket'] for d in dispatches.values()]}), K1 "
+        f"{expected} launches")
+    return dict(wall_s=wall, launches=launched,
+                dispatches=len(dispatches))
+
+
+# 16c's fit, cut from the example's 200 steps: a 64² step costs 1.1-1.4 s
+# on the card (the backward's `index_put_`, PERF.md §5): 226 s for all
+# 200, 55 s for 40, which put phase 16 over its 60 s on a slow host.
+EXAMPLE_FIT_STEPS = 20
+
+
+def phase_train_example() -> dict:
+    """16c: scene training at its defaults but EXAMPLE_FIT_STEPS steps: the
+    loss falls, the pruned scene is smaller, PSNR finite; no kernel
+    launched."""
+    rep, launched, wall = run_script("examples/torch_train_gaussians.py",
+                                     ["--steps", str(EXAMPLE_FIT_STEPS)])
+    losses = rep["losses"]
+    check(losses[-1] < losses[0], f"16c: the loss did not fall: "
+          f"{losses[0]} -> {losses[-1]}")
+    check(rep["n_pruned"] < rep["n"], "16c: pruning kept every Gaussian")
+    check(math.isfinite(rep["psnr"]), "16c: non-finite PSNR")
+    check(not any(launched.values()), f"16c: kernels launched {launched}")
+    log(f"[16c] {len(losses)} steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; pruned {rep['n']} -> {rep['n_pruned']}; PSNR "
+        f"{rep['psnr_base']:.2f} -> {rep['psnr']:.2f}, work/px "
+        f"{rep['work_px']:.1f}")
+    return dict(wall_s=wall, launches=launched, steps=len(losses),
+                loss_first=losses[0], loss_last=losses[-1],
+                psnr=rep["psnr"], work_px=rep["work_px"])
+
+
+def phase_lm_example(out_dir: str) -> dict:
+    """16d: LM training at its defaults, checkpoints under build/ (removed
+    after): the losses the driver prints are finite, the last step's
+    among them; no kernel launched."""
+    ckpt = os.path.join(out_dir, "lm_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            _, launched, wall = run_script("examples/torch_train_lm.py",
+                                           ["--ckpt-dir", ckpt],
+                                           report=False)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        log(buf.getvalue().rstrip())
+    losses = {int(m[0]): float(m[1]) for m in re.findall(
+        r"step\s+(\d+) loss=(\S+)", buf.getvalue())}
+    check(29 in losses and all(map(math.isfinite, losses.values())),
+          f"16d: losses {losses}")
+    check(not any(launched.values()), f"16d: kernels launched {launched}")
+    return dict(wall_s=wall, launches=launched, losses=losses)
+
+
+def phase_examples() -> dict:
+    """Phase 16: the port's examples and trace tools in this process on
+    the card, each through its `main`."""
+    out_dir = os.path.join(ROOT, "build", "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    reset_launches()
+    render.full_launches = prtu.dense_launches = 0
+    out = dict(quickstart=phase_quickstart(out_dir),
+               serve=phase_serve_example(),
+               train=phase_train_example(),
+               lm=phase_lm_example(out_dir))
+    _, launched, wall = run_script("tools/torch_trace_smoke.py", [],
+                                   report=False)
+    out["trace_smoke"] = dict(wall_s=wall, launches=launched)
+    out["launches"] = all_launches()
+    log(f"[16] launches {out['launches']}; walls "
+        + ", ".join(f"{k} {v['wall_s']:.2f} s" for k, v in out.items()
+                    if isinstance(v, dict) and "wall_s" in v))
+    return out
+
+
 def write_json(path, summary: dict) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -5417,6 +5695,15 @@ def dryrun_only(summary: dict, json_path) -> int:
     return 0
 
 
+def examples_only(summary: dict, json_path) -> int:
+    """Phase 16 alone. Prints the card line and the contract's last line."""
+    summary["examples"] = timed_phase("examples", phase_examples)
+    write_json(json_path, summary)
+    print(summary["card"])
+    print(ok_line())
+    return 0
+
+
 def ok_line() -> str:
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5470,6 +5757,9 @@ def main() -> int:
                         help="run only the build and phase 15 (the dry-runs "
                         "and roofline, --compress over a mesh, the torch "
                         "profiler hook)")
+    parser.add_argument("--examples-only", action="store_true",
+                        help="run only the build and phase 16 (the "
+                        "examples and trace tools on the card)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5508,6 +5798,8 @@ def main() -> int:
         return lm_mesh_families_only(summary, args.json)
     if args.dryrun_only:
         return dryrun_only(summary, args.json)
+    if args.examples_only:
+        return examples_only(summary, args.json)
     summary["quant"] = timed_phase("quant", phase_quant)
 
     t0 = time.perf_counter()
@@ -5524,6 +5816,8 @@ def main() -> int:
     streams = plan.stage1_compact(ps)
     check(len(streams) >= 2, "the kernel phases need two spill passes")
     houts = [plan.ctu(ps, ts) for ts in streams[:2]]
+    summary["chained_hd1080"] = phase_chained_hd1080(plan, ps, streams,
+                                                     houts[0])
     summary["k1"] = phase_k1(ps.proj, ps.grid, streams[0].lists,
                              streams[0].valid)
     summary["k2"] = phase_k2(ps.proj, ps.grid, houts)
@@ -5581,6 +5875,8 @@ def main() -> int:
                                               phase_lm_mesh_families)
     torch.cuda.empty_cache()
     summary["dryrun"] = timed_phase("dryrun", phase_dryrun)
+    torch.cuda.empty_cache()
+    summary["examples"] = timed_phase("examples", phase_examples)
     shard_rows = {"prtu_entry_cat_mask": summary["shards"]["kernels"]["k1"],
                   "blend_tiles_fused": summary["shards"]["kernels"]["k2"]}
 
@@ -5618,6 +5914,10 @@ def main() -> int:
         kernels[-1]["dryrun_launches"] = summary["dryrun"]["launches"][kname]
         kernels[-1]["profiler_launches"] = summary["dryrun"]["profiler"][
             "launches"].get(kname, 0)
+        # Phase 16: the examples and trace tools (K1 in the serving
+        # example, K2 in the quickstart's fused design).
+        kernels[-1]["examples_launches"] = summary["examples"]["launches"][
+            kname]
         if kname == "prtu_entry_cat_mask":
             # Phase 10a: the render driver's run.
             kernels[-1].update(driver_launches=summary["driver"]["render"][

@@ -6,7 +6,8 @@ only on Gaussians that passed Stage 1. Two dataflows realize it:
 * the survivor stream (`stream_entry_test`, the default): Stage 1 produces
   per-tile compacted depth-ordered (T, K) lists and the CTU tests only
   entries of those lists, emitting per-entry (T, K, regions) masks:
-  O(T·K·16) memory, CAT work spent on survivors only;
+  O(T·K·16) memory, CAT work spent on survivors only
+  (`stream_hierarchical_test` chains the compaction and this CTU);
 * the dense-mask oracle (`hierarchical_test`): the full (regions, N)
   boolean masks at every level, O(regions·N) memory, which every stream
   quantity must match. `baseline_masks` gives the AABB (vanilla 3DGS) and
@@ -36,6 +37,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import raster
 from repro_torch.core.gaussians import Projected, classify_spiky
 from repro_torch.core.culling import TileGrid, aabb_mask, intersection_mask
 from repro_torch.core.cat import (SamplingMode, entry_cat_mask,
@@ -274,6 +276,31 @@ def entry_subtile_mask(proj: Projected, grid: TileGrid, lists: torch.Tensor,
         & ((my + r) > y0) & ((my - r) < y1)
     live = (valid & proj.in_frustum[idx])[:, :, None]
     return hit & live
+
+
+def stream_hierarchical_test(
+        proj: Projected, grid: TileGrid,
+        mode: SamplingMode = SamplingMode.SMOOTH_FOCUSED,
+        prec: PrecisionScheme = FULL_FP32,
+        spiky_threshold: float = 3.0, *, k_max: int,
+        order: Optional[torch.Tensor] = None,
+        cat_fn: Optional[Callable] = None) -> StreamHierarchyOut:
+    """Stage-1 AABB -> compact survivor streams -> entry-indexed CAT, in
+    one call: one pass of `raster.compact_aabb_tile_lists` (its overflow
+    flag is the CLAMP one: some tile held more than k_max survivors), then
+    `stream_entry_test` on it, the CTU stage `renderer.RenderPlan` calls
+    per pass.
+
+    order: optional precomputed `raster.depth_order(proj)`.
+    cat_fn: as in `stream_entry_test` (`kernels.ops.entry_cat_fn` routes
+    the entry CAT through K1); the plain `cat.entry_cat_mask` when None.
+    """
+    if order is None:
+        order = raster.depth_order(proj)
+    lists, valid, overflow = raster.compact_aabb_tile_lists(proj, grid,
+                                                            order, k_max)
+    return stream_entry_test(proj, grid, lists[0], valid[0], overflow, mode,
+                             prec, spiky_threshold, cat_fn=cat_fn)
 
 
 def stream_entry_counters(proj: Projected, grid: TileGrid,

@@ -2,7 +2,8 @@
 
 `core.renderer.RenderPlan` dispatches here for its "cuda" backends:
 `TestConfig(backend="cuda")` routes the CTU's CAT through the PRTU kernels
-(`entry_cat_mask_cuda` via `entry_cat_fn` on the stream dataflow, K1;
+(`entry_cat_mask_cuda` via `entry_cat_fn` on the stream dataflow, K1,
+also chained after Stage 1 by `stream_hierarchical_test_cuda`;
 `cat_mask_cuda` / `hierarchical_test_cuda` on the dense oracle, K4), and
 `RasterConfig(fused=True)` routes the blend through the fused kernel
 (`render_tiles_fused_passes`, K2). `blend_tiles_cuda` is the full-sweep
@@ -114,6 +115,18 @@ def entry_cat_fn(mode: SamplingMode, prec: PrecisionScheme,
     entry CAT through the PRTU kernel."""
     return lambda p, g, ls, v, tile_origins=None: entry_cat_mask_cuda(
         p, g, ls, v, mode, prec, spiky_threshold, tile_origins)
+
+
+def stream_hierarchical_test_cuda(proj: Projected, grid: TileGrid,
+                                  mode: SamplingMode, prec: PrecisionScheme,
+                                  spiky_threshold: float = 3.0, *,
+                                  k_max: int,
+                                  order=None) -> H.StreamHierarchyOut:
+    """`core.hierarchy.stream_hierarchical_test` with the entry CAT on the
+    entry PRTU kernel (K1, one launch)."""
+    return H.stream_hierarchical_test(
+        proj, grid, mode, prec, spiky_threshold, k_max=k_max, order=order,
+        cat_fn=entry_cat_fn(mode, prec, spiky_threshold))
 
 
 def gather_tile_features(proj: Projected, grid: TileGrid, lists, valid,

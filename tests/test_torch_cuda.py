@@ -9,7 +9,9 @@ a GPU machine without them:
 Tolerances: K1 (entry CAT) FULL_FP32 exact, MIXED flip rate < 5e-4
 against the plain version on the CPU, and exact against the plain version
 on the card (leaders off the 4x4 lattice, an all-invalid pass, |Δ| on both
-sides of 464); K2 (fused blend) rgb/trans atol 2e-4, counters exact (also
+sides of 464), and the same rule for `ops.stream_hierarchical_test_cuda`
+at 64² against its CPU twin, lists and Stage-1 masks exact; K2 (fused
+blend) rgb/trans atol 2e-4, counters exact (also
 with sparse masks, ragged K and carried state; a batch of two frames
 folded into the tile axis equal to per-frame launches bit for bit, K1 and
 K2 both; an LOD build bit-equal across two runs from one seed, and an LOD
@@ -204,6 +206,36 @@ def assert_fused_equal(got, want):
                                       err_msg=name)
 
 
+def check_chained_route(cuda, prec):
+    """`ops.stream_hierarchical_test_cuda` (Stage 1, one compaction pass,
+    K1) at 64² against its plain twin on the CPU from the same `Projected`:
+    lists, valid bits and Stage-1 masks equal, one K1 launch, the CAT mask
+    within K1's flip rule and, under FULL_FP32, every counter equal."""
+    from repro_torch.core import (SamplingMode, TileGrid, default_camera,
+                                  project, random_scene)
+    from repro_torch.core.gaussians import Projected
+    from repro_torch.core.hierarchy import stream_hierarchical_test
+    from repro_torch.kernels import ops
+
+    scene = random_scene(torch.Generator().manual_seed(7), 400)
+    proj = project(scene, default_camera(64, 64))
+    grid, mode = TileGrid(64, 64), SamplingMode.SMOOTH_FOCUSED
+    want = stream_hierarchical_test(proj, grid, mode, prec, k_max=400)
+    before = prtu.launches
+    got = ops.stream_hierarchical_test_cuda(
+        Projected(*(x.to(cuda) for x in proj)), grid, mode, prec,
+        k_max=400)
+    assert prtu.launches == before + 1
+    for f in ("lists", "valid", "entry_sub_mask", "overflow"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    flips = int((got.entry_mini_mask.cpu() != want.entry_mini_mask).sum())
+    assert flips == 0 if prec == FULL_FP32 else \
+        flips < 5e-4 * want.entry_mini_mask.numel()
+    if prec == FULL_FP32:
+        assert all(torch.equal(got.counters[k].cpu(), v)
+                   for k, v in want.counters.items())
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -226,6 +258,7 @@ def test_entry_cat_kernel_matches_plain(cuda, prec, monkeypatch):
     assert prtu.launches == before + 1
     flips = int((got.cpu() != want).sum())
     assert flips == 0 if prec == "fp32" else flips < 5e-4 * want.numel()
+    check_chained_route(cuda, p)
 
     monkeypatch.setattr(prtu, "ENTRY_INDEX_LIMIT", 10 * 512 * 16)
     ranges = prtu.entry_row_ranges(64, 512)
